@@ -5,22 +5,31 @@
 
 Phases (any failure exits non-zero):
 1. build every CUDA kernel under ``qed_splatter_tpu_torch/csrc`` with nvcc;
-2. hold each kernel against its plain PyTorch version on seeded random
-   inputs at the render path's shapes;
+2. hold each forward kernel against its plain PyTorch version on seeded
+   random inputs at the render path's shapes;
+2b. hold the compositing backward kernel against its plain version on
+   random slabs and cotangents, unchunked (K = 256) and chunked (K = 2048,
+   chunk 2 composited on some tiles, both skip reasons firing);
 3. scene A (the bench's canonical point): 131,072 capacity / 80,000 alive,
    SH degree 3, K = 256, 1296x840, 4 orbit cameras through
    ``render(train=False)``;
 4. scene B (the adaptive-K dense regime): 327,680 / 288,000, K = 2048,
-   2 cameras, which takes the compositor's chunked path.
+   2 cameras, which takes the compositor's chunked path;
+train A. ``bench.py``'s canonical training point on scene A: SO3xR3 camera
+   opt, depth supervision, random background, the default optimizers,
+   absgrad on; 3 warm-up and 20 timed steps of ``make_train_step``;
+train B. scene B at K = 2048: 3 steps, the chunked backward.
 
-Each scene resets the kernels' launch counts, renders, and fails unless every
-kernel launched; checks finite outputs of the right shape; matches one frame
-against the plain path (``use_pallas=False``) on the card; holds each kernel
-against its plain version on that frame's inputs; and times the frame, each
-kernel, its plain version and its bound.
+Each render or train phase resets the kernels' launch counts, drives the
+path, and fails unless every kernel of the path launched at least once per
+frame or step; checks finite outputs; matches one frame or one step's
+gradients against the plain path (``use_pallas=False``) on the card; holds
+each kernel against its plain version on that run's own inputs; and times
+the frame or step, each kernel, its plain version and its bound.
 
-Prints a ``kernels`` JSON line, the card's name and power limit, and as the
-last line ``{"ok": true, "device": {...}}``. Needs CUDA; imports no JAX.
+Prints ``render_ms_per_frame`` / ``train_ms_per_step`` and ``kernels`` JSON
+lines, the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``. Needs CUDA; imports no JAX.
 """
 
 from __future__ import annotations
@@ -41,14 +50,36 @@ W, H = 1296, 840
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_F32_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 TOL = 1e-4                   # the reference's own on-chip forward parity bar
+# backward bar: per output channel, max |kernel - plain| over max |plain|
+# (warp shuffles, index_add_ atomics and autograd sum in other orders)
+BWD_TOL = 1e-3
 REPLACES = {
     "composite": ("qed_splatter_tpu/ops/rasterize_pallas.py:231 _fwd_kernel; "
                   "qed_splatter_tpu/ops/rasterize_pallas.py:241 "
                   "_fwd_kernel_skip"),
+    "composite_bwd": ("qed_splatter_tpu/ops/rasterize_pallas.py:297 "
+                      "_bwd_kernel; qed_splatter_tpu/ops/rasterize_pallas.py"
+                      ":268 _bwd_kernel_skip"),
     "slab_gather": "qed_splatter_tpu/ops/tiles.py:67 _slab_kernel",
 }
 SOURCES = {"composite": "qed_splatter_tpu_torch/csrc/composite.cu",
+           "composite_bwd": "qed_splatter_tpu_torch/csrc/composite_bwd.cu",
            "slab_gather": "qed_splatter_tpu_torch/csrc/slab_gather.cu"}
+TRAIN_STEPS_WARM, TRAIN_STEPS_TIMED = 3, 20
+
+
+def fwd_ops_per_pair(d):
+    """f32 ops per (pixel, slot) of composite.cu."""
+    return 20 + 2 * d
+
+
+def bwd_ops_per_pair(d):
+    """f32 ops per (pixel, slot) of composite_bwd.cu: sweep 1 recomputes
+    alpha, T and dw (23 + 2D); sweep 2 recomputes them and adds the
+    transmittance chain and the 6 + D per-pixel terms (43 + 4D, counting one
+    add per pixel for each term's sum over the tile; the shuffles that move
+    the terms are not counted)."""
+    return 66 + 6 * d
 
 
 class SmokeFailure(RuntimeError):
@@ -167,6 +198,80 @@ def phase_kernel_parity(gen):
     torch.cuda.synchronize()
 
 
+# --------------------------------------------------------------- phase 2b
+
+def bwd_channel_errs(got, want):
+    """[(max |kernel - plain| / max |plain|) for every output channel]."""
+    errs = []
+    for g, w in zip(got, want):
+        for c in range(w.shape[1]):
+            scale = max(float(w[:, c].abs().max()), 1e-30)
+            errs.append(float((g[:, c] - w[:, c]).abs().max()) / scale)
+    return errs
+
+
+def check_bwd(got, want, runs, k_chunk, label):
+    errs = bwd_channel_errs(got, want)
+    abs_err = max(max_abs(g, w) for g, w in zip(got, want))
+    print(f"  {label}: per-channel max err / max |plain| "
+          f"{', '.join(f'{e:.2e}' for e in errs)}; max_abs_err {abs_err:.3e}")
+    check(max(errs) <= BWD_TOL, f"{label} within {BWD_TOL} of each "
+          "channel's max")
+    if k_chunk:
+        k = got[0].shape[-1]
+        slot = torch.arange(k, device="cuda")[None, None, :]
+        past = slot >= (runs.long() * k_chunk)[:, None, None]
+        check(all(not bool(torch.where(past, g, 0.0).any()) for g in got),
+              f"{label}: exact zeros past each tile's composited chunks")
+    return abs_err
+
+
+def phase_bwd_parity(gen):
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    print("phase 2b: backward kernel against its plain version", flush=True)
+    ntx, nty = -(-W // 16), -(-H // 16)
+    t = ntx * nty
+    d = 4
+    counts = torch.randint(0, 257, (t,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    slabs = random_slabs(gen, t, 256, d, counts, ntx)
+    gout = torch.randn((t, d, 256), generator=gen, device="cuda")
+    gacc = torch.randn((t, 1, 256), generator=gen, device="cuda")
+    runs = torch.ones(t, dtype=torch.int32, device="cuda")
+    got = rp.composite_tiles_bwd(*slabs, gout, gacc, ntx, 16, 0, runs)
+    want = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, ntx)
+    check_bwd(got, want, runs, 0, f"composite_bwd T={t} K=256 D={d}")
+
+    k = 2048
+    counts = torch.randint(1, k + 1, (t,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    counts[: t // 3] = torch.randint(1, rp.K_CHUNK + 1, (t // 3,),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)
+    saturate = torch.zeros(t, dtype=torch.bool, device="cuda")
+    saturate[t // 3: t // 2] = True
+    counts[saturate] = k
+    slabs = random_slabs(gen, t, k, d, counts, ntx, saturate)
+    runs = torch.empty(t, dtype=torch.int32, device="cuda")
+    rp.composite_tiles_chunked(*slabs, ntx, tile_counts=counts,
+                               chunks_run=runs)
+    by_count = int(((runs < 2) & (counts <= rp.K_CHUNK)).sum())
+    by_sat = int(((runs < 2) & (counts > rp.K_CHUNK)).sum())
+    both = int((runs == 2).sum())
+    print(f"  chunked K={k}: {both} tiles composite both chunks; chunk 2 "
+          f"skipped by {by_count} by count, {by_sat} saturated")
+    check(both > 0 and by_count > 0 and by_sat > 0,
+          "chunk 2 composited on some tiles and both skip reasons fired")
+    got = rp.composite_tiles_bwd(*slabs, gout, gacc, ntx, 16, rp.K_CHUNK,
+                                 runs)
+    want = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, ntx,
+                                      k_chunk=rp.K_CHUNK, chunks_run=runs)
+    check_bwd(got, want, runs, rp.K_CHUNK,
+              f"composite_bwd chunked T={t} K={k} D={d}")
+    torch.cuda.synchronize()
+
+
 # ------------------------------------------------------------ phases 3, 4
 
 def make_scene(n_alive, capacity, seed):
@@ -194,6 +299,31 @@ def cameras(n):
     K = orbit_intrinsics(W, H, 0.85)
     return [(orbit_c2w_opengl(3.0, 2 * math.pi * i / n, 0.15, (0, 0, 3.0)),
              K) for i in range(n)]
+
+
+def needed_slots(counts, runs, k, k_chunk):
+    """Slots this run's data needs composited: each tile's count, capped at
+    K and at the chunks it ran."""
+    needed = torch.minimum(torch.minimum(counts.long(), torch.tensor(
+        k, device=counts.device)), runs.long() * (k_chunk or k))
+    return int(needed.sum())
+
+
+def entry(name, label, launches, err, ms, plain_ms, lib_ms, bound_b,
+          bound_o):
+    return {
+        "name": f"{name} ({label})",
+        "route": "cuda",
+        "source": SOURCES[name],
+        "replaces": REPLACES[name],
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bound_b, bound_o),
+        "bound_by": "operations" if bound_o > bound_b else "bytes",
+        "library_ms": lib_ms,
+    }
 
 
 class Capture:
@@ -328,9 +458,7 @@ def phase_scene(label, n_alive, capacity, k_cap, n_cams, reps, seed,
         *g_args, tile_counts=counts, k_chunk=k_chunk), 2)
     in_bytes = sum(x.numel() * 4 for x in g_args[:4]) + counts.numel() * 4
     out_bytes = (out.numel() + acc.numel()) * 4
-    needed = torch.minimum(torch.minimum(counts.long(), torch.tensor(
-        k, device="cuda")), runs.long() * (k_chunk or k))
-    ops = 256 * int(needed.sum()) * (20 + 2 * d)
+    ops = 256 * needed_slots(counts, runs, k, k_chunk) * fwd_ops_per_pair(d)
     b_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
     b_ops = ops / PEAK_F32_PER_S * 1e3
 
@@ -372,35 +500,202 @@ def phase_scene(label, n_alive, capacity, k_cap, n_cams, reps, seed,
               f"ms wall under the profiler (idle share "
               f"{1 - busy_ms / wall_ms:.3f})")
 
-    entries = []
-    for name, ms, plain_ms, lib, bound_b, bound_o, err in (
-        ("composite", ms_c, plain_c, None, b_bytes, b_ops, err_abs),
-        ("slab_gather", ms_g, plain_g, lib_g,
-         g_bytes / PEAK_BYTES_PER_S * 1e3, 0.0, 0.0),
-    ):
-        entries.append({
-            "name": f"{name} (scene {label}, K={k_cap})",
-            "route": "cuda",
-            "source": SOURCES[name],
-            "replaces": REPLACES[name],
-            "launches": launches[name],
-            "max_abs_err": err,
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(bound_b, bound_o),
-            "bound_by": "operations" if bound_o > bound_b else "bytes",
-            "library_ms": lib,
-        })
+    label_k = f"scene {label}, K={k_cap}"
+    entries = [
+        entry("composite", label_k, launches["composite"], err_abs, ms_c,
+              plain_c, None, b_bytes, b_ops),
+        entry("slab_gather", label_k, launches["slab_gather"], 0.0, ms_g,
+              plain_g, lib_g, g_bytes / PEAK_BYTES_PER_S * 1e3, 0.0),
+    ]
     del outs, plain, params
     torch.cuda.empty_cache()
     return entries, frame_ms
+
+
+
+# ------------------------------------------------------------ train phases
+
+def train_batch(rng):
+    """``bench.py``'s batch: one orbit camera, uniform RGB, depth uniform in
+    0.5-4.0, on the card."""
+    from qed_splatter_tpu_torch.testing import orbit_c2w_opengl, \
+        orbit_intrinsics
+
+    return dict(
+        c2w=torch.as_tensor(orbit_c2w_opengl(3.0, 0.15, 0.1, (0, 0, 3.0)),
+                            device="cuda"),
+        K=torch.as_tensor(orbit_intrinsics(W, H, 0.85), device="cuda"),
+        cam_idx=0,
+        rgb=torch.as_tensor(rng.uniform(0, 1, (H, W, 3)).astype(np.float32),
+                            device="cuda"),
+        depth=torch.as_tensor(
+            rng.uniform(0.5, 4.0, (H, W, 1)).astype(np.float32),
+            device="cuda"),
+    )
+
+
+def phase_train(label, n_alive, capacity, k_cap, n_warm, n_timed, seed,
+                compare_plain, profile_dir):
+    import dataclasses
+
+    from qed_splatter_tpu_torch.configs import ModelConfig, \
+        default_optimizers
+    from qed_splatter_tpu_torch.engine.optim import GroupOptimizers
+    from qed_splatter_tpu_torch.engine.train_step import init_train_state, \
+        make_train_step
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+    from qed_splatter_tpu_torch.ops import tiles
+
+    n_steps = n_warm + n_timed
+    print(f"phase train {label}: {n_alive} alive / {capacity} capacity, "
+          f"K={k_cap}, {W}x{H}, {n_warm} warm-up + {n_timed} timed steps",
+          flush=True)
+    t0 = time.perf_counter()
+    params = make_scene(n_alive, capacity, seed)
+    rng = np.random.default_rng(seed)
+    batch = train_batch(rng)
+    cfg = ModelConfig(camera_opt_mode="SO3xR3", max_per_tile=k_cap,
+                      background_color="random")
+    optims = GroupOptimizers(default_optimizers())
+    state = init_train_state(params, optims, num_cameras=4)
+    step = make_train_step(cfg, optims, W, H, has_depth=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    print(f"  scene and state init {time.perf_counter() - t0:.2f} s")
+
+    # --- the main path: counts from 0, every step through make_train_step
+    for kern in (rp.COMPOSITE, rp.COMPOSITE_BWD, tiles.SLAB_GATHER):
+        kern.reset()
+    times, losses, nonfinite = [], [], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        if i >= n_warm:
+            times.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(metrics["loss"]))
+        nonfinite.append(float(metrics["nonfinite_grads"]))
+    launches = {"composite": rp.COMPOSITE.launches,
+                "composite_bwd": rp.COMPOSITE_BWD.launches,
+                "slab_gather": tiles.SLAB_GATHER.launches}
+    chunked_bwd = rp.COMPOSITE_BWD.variant_launches.get("chunked", 0)
+    print(f"  launches {launches}, chunked composite_bwd launches "
+          f"{chunked_bwd}")
+    check(all(v >= n_steps for v in launches.values()),
+          f"every kernel launched at least once per step ({n_steps} steps)")
+    if k_cap > rp.K_CHUNK:
+        check(chunked_bwd >= n_steps, "the chunked backward ran")
+    print(f"  loss per step: {', '.join(f'{x:.5f}' for x in losses)}")
+    check(all(math.isfinite(x) for x in losses), "loss finite on every step")
+    check(all(x == 0.0 for x in nonfinite), "nonfinite_grads == 0 on every "
+          "step")
+    check(all(bool(torch.isfinite(v).all()) for v in
+              state.params.trainable_dict().values())
+          and bool(torch.isfinite(state.camera_opt).all()),
+          "parameters and camera deltas finite")
+    print(f"  psnr {float(metrics['psnr']):.3f}, tile_max_count "
+          f"{int(metrics['tile_max_count'])}, tile_overflow "
+          f"{int(metrics['tile_overflow'])}, gaussian_count "
+          f"{int(metrics['gaussian_count'])}")
+    step_ms = statistics.median(times)
+    print(f"  train step: median {step_ms:.3f} ms over {len(times)} steps "
+          f"(min {min(times):.3f}, max {max(times):.3f})")
+
+    # --- one step's gradients against the plain path, and the backward
+    #     kernel on that step's own captured inputs
+    seed_bg = seed + 17
+    with Capture(rp, "composite_tiles_bwd") as cap, \
+            Capture(rp, "composite_tiles_chunked") as cap_f:
+        got = step.grads(state, batch,
+                         torch.Generator(device="cuda").manual_seed(seed_bg))
+    torch.cuda.synchronize()
+    if compare_plain:
+        plain = make_train_step(dataclasses.replace(cfg, use_pallas=False),
+                                optims, W, H, has_depth=True)
+        want = plain.grads(state, batch, torch.Generator(
+            device="cuda").manual_seed(seed_bg))
+        torch.cuda.synchronize()
+        rel = {}
+        pairs = [*((g, got.params[g], want.params[g]) for g in got.params),
+                 ("camera_opt", got.camera_opt, want.camera_opt),
+                 ("absgrad", got.absgrad, want.absgrad)]
+        for name, a, b in pairs:
+            rel[name] = float((a - b).abs().max()) / max(
+                float(b.abs().max()), 1e-30)
+        e_loss = abs(float(got.loss) - float(want.loss)) / abs(
+            float(want.loss))
+        print(f"  step gradients vs plain path (max err / max |grad|): "
+              + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+              + f"; loss (relative) {e_loss:.2e}")
+        check(max(rel.values()) <= BWD_TOL,
+              f"every gradient within {BWD_TOL} of its max vs the plain path")
+        check(e_loss <= TOL, f"loss within {TOL} relative of the plain path")
+        del want, plain
+
+    args = cap.args
+    slabs, gout, gacc = args[:4], args[4], args[5]
+    ntx, ts, k_chunk, runs = args[6], args[7], args[8], args[9]
+    t, d, k = slabs[2].shape
+    kern = rp.composite_tiles_bwd(*args)
+    ref = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, ntx, ts,
+                                     k_chunk=k_chunk, chunks_run=runs)
+    err = check_bwd(kern, ref, runs, k_chunk,
+                    f"composite_bwd on the step's slabs (T={t}, K={k})")
+    del kern, ref
+    ms = cuda_ms(lambda: rp.composite_tiles_bwd(*args), 20)
+    plain_ms = cuda_ms(lambda: rp.composite_tiles_bwd_ref(
+        *slabs, gout, gacc, ntx, ts, k_chunk=k_chunk, chunks_run=runs), 1)
+    counts = cap_f.kwargs["tile_counts"]
+    in_bytes = (sum(x.numel() for x in slabs) + gout.numel() + gacc.numel()
+                + runs.numel()) * 4
+    out_bytes = sum(x.numel() for x in slabs) * 4
+    ops = 256 * needed_slots(counts, runs, k, k_chunk) * bwd_ops_per_pair(d)
+    bound_b = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
+    bound_o = ops / PEAK_F32_PER_S * 1e3
+    skipped = int((runs < -(-k // (k_chunk or k))).sum())
+    print(f"  composite_bwd {ms:.4f} ms (plain {plain_ms:.3f} ms), bound "
+          f"{max(bound_b, bound_o):.4f} ms ({bound_o:.4f} by operations, "
+          f"{bound_b:.4f} by bytes); tiles with a skipped chunk {skipped} "
+          f"of {t}")
+
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        n_prof = 5
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(n_prof):
+                state, _ = step(state, batch, gen)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+        busy_ms = sum(e.self_device_time_total for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        table = prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=50)
+        path = f"{profile_dir}/profile_train_{label}.txt"
+        with open(path, "w") as f:
+            f.write(table)
+        print(f"  profile of {n_prof} steps written to {path}: device busy "
+              f"{busy_ms / n_prof:.3f} ms per step of {wall_ms / n_prof:.3f} "
+              f"ms wall under the profiler (idle share "
+              f"{1 - busy_ms / wall_ms:.3f})")
+
+    entries = [entry("composite_bwd", f"train {label}, K={k_cap}",
+                     launches["composite_bwd"], err, ms, plain_ms, None,
+                     bound_b, bound_o)]
+    del state, got, params, args, slabs, gout, gacc
+    torch.cuda.empty_cache()
+    return entries, step_ms
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", default="",
-                    help="directory for torch.profiler tables of each scene")
+                    help="directory for torch.profiler tables of each scene "
+                         "and train phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("error: CUDA is not available", file=sys.stderr)
@@ -428,17 +723,29 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     phase_kernel_parity(gen)
-    kernels, frames = [], {}
+    phase_bwd_parity(gen)
+    kernels, frames, steps = [], {}, {}
     for label, n_alive, cap, k_cap, n_cams, reps in (
-        ("A", 80_000, 131_072, 256, 4, 3),
+        ("A", 80_000, 131_072, 256, 4, 2),
         ("B", 288_000, 327_680, 2048, 2, 2),
     ):
         entries, frame_ms = phase_scene(label, n_alive, cap, k_cap, n_cams,
                                         reps, args.seed, args.profile)
         kernels += entries
         frames[label] = frame_ms
+    for label, n_alive, cap, k_cap, n_warm, n_timed, compare in (
+        ("A", 80_000, 131_072, 256, TRAIN_STEPS_WARM, TRAIN_STEPS_TIMED,
+         True),
+        ("B", 288_000, 327_680, 2048, 1, 2, False),
+    ):
+        entries, step_ms = phase_train(label, n_alive, cap, k_cap, n_warm,
+                                          n_timed, args.seed, compare,
+                                          args.profile)
+        kernels += entries
+        steps[label] = step_ms
 
-    print(json.dumps({"render_ms_per_frame": frames}))
+    print(json.dumps({"render_ms_per_frame": frames,
+                      "train_ms_per_step": steps}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,8 @@ SH_C0 = 0.28209479177387814
 
 FIELDS = ("means", "quats", "scales", "opacities", "features_dc",
           "features_rest", "alive")
+# the trainable fields: one optimizer group each
+GROUPS = FIELDS[:-1]
 
 
 def rgb_to_sh_dc(rgb: torch.Tensor) -> torch.Tensor:
@@ -65,6 +67,13 @@ class GaussianParams:
     def to(self, device) -> "GaussianParams":
         return GaussianParams(
             **{f: getattr(self, f).to(device) for f in FIELDS})
+
+    def trainable_dict(self) -> dict:
+        """The six optimizer parameter groups (reference config.py:45-68)."""
+        return {g: getattr(self, g) for g in GROUPS}
+
+    def replace_trainable(self, d: dict) -> "GaussianParams":
+        return self.replace(**{g: d[g] for g in GROUPS})
 
 
 def from_jax_arrays(d: dict, device="cuda") -> GaussianParams:

@@ -1,17 +1,20 @@
-"""The splat model's forward render (port of ``models/splatfacto.py``).
+"""The splat model: render and training losses (port of
+``models/splatfacto.py``).
 
-:func:`render` with ``train=False`` is the serving path: what an eval, an
-orbit render or a viewer frame runs for one camera. It chains
-``get_viewmat`` -> ``project_gaussians`` -> ``eval_sh_colors`` ->
-``bin_gaussians`` (window gather kernel) -> ``rasterize_tiles_pallas``
-(rank gather + compositing kernel), then blends the background and fills
-empty depth. On CUDA tensors the hand-written kernels run; on CPU tensors
-their plain versions. The training render (random background, gradient
-plan, absgrad) and the losses come with the backward kernels.
+:func:`render` chains ``get_viewmat`` -> ``project_gaussians`` ->
+``eval_sh_colors`` -> ``bin_gaussians`` (window gather kernel) ->
+``rasterize_tiles_pallas`` (rank gather + compositing kernels), then blends
+the background and fills empty depth. With ``train=False`` it is the
+serving path (an eval, an orbit render or a viewer frame) and runs without
+autograd. With ``train=True`` it is the first half of the training step:
+differentiable, with splatfacto's random background drawn from a
+``torch.Generator`` and the absgrad side channel. On CUDA tensors the
+hand-written kernels run; on CPU tensors their plain versions.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -25,6 +28,7 @@ from qed_splatter_tpu_torch.ops.projection import project_gaussians
 from qed_splatter_tpu_torch.ops.rasterize import rasterize_tiles
 from qed_splatter_tpu_torch.ops.rasterize_pallas import rasterize_tiles_pallas
 from qed_splatter_tpu_torch.ops.sh import eval_sh_colors
+from qed_splatter_tpu_torch.ops.ssim import ssim
 from qed_splatter_tpu_torch.ops.tiles import bin_gaussians
 
 # nerfstudio's fixed eval background (splatfacto draws a random background
@@ -37,7 +41,7 @@ class RenderOutputs:
     """One camera's render (the JAX ``RenderOutputs`` forward fields)."""
 
     rgb: torch.Tensor                   # [H, W, 3] in [0, 1]
-    depth: torch.Tensor                 # [H, W, 1]
+    depth: Optional[torch.Tensor]       # [H, W, 1] (None: RGB only)
     accumulation: torch.Tensor          # [H, W, 1]
     background: torch.Tensor            # [3]
     radii: torch.Tensor                 # [N] int32
@@ -59,16 +63,23 @@ def active_sh_degree(step, sh_degree: int, sh_degree_interval: int):
     return min(int(step) // sh_degree_interval, sh_degree)
 
 
-def background_color(cfg: ModelConfig, device) -> torch.Tensor:
-    """The eval background: white, black, or the fixed eval colour."""
+def background_color(cfg: ModelConfig, device, train: bool = False,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """White, black, or: splatfacto's random colour per training step (drawn
+    from ``generator``), the fixed eval colour otherwise."""
     if cfg.background_color == "white":
         return torch.ones(3, device=device)
     if cfg.background_color == "black":
         return torch.zeros(3, device=device)
+    if train:
+        if generator is None:
+            raise ValueError("a random training background needs a "
+                             "torch.Generator")
+        return torch.rand(3, generator=generator, device=device)
     return torch.tensor(EVAL_BACKGROUND, dtype=torch.float32, device=device)
 
 
-@torch.no_grad()
 def render(
     params: GaussianParams,
     c2w,                       # [3or4, 4] OpenGL camera-to-world
@@ -80,21 +91,44 @@ def render(
     train: bool = False,
     crop_box=None,
     device="cuda",
+    generator: Optional[torch.Generator] = None,
+    tile_eps: Optional[torch.Tensor] = None,
+    absgrad_seed: Optional[torch.Tensor] = None,
 ) -> RenderOutputs:
-    """Forward render of one camera on ``device`` (params, ``c2w`` and ``K``
-    are moved there; numpy or tensors). ``crop_box`` (models.crop.CropBox)
-    excludes gaussians; an all-empty crop gives the background image."""
-    if train:
+    """Render one camera on ``device`` (params, ``c2w`` and ``K`` are moved
+    there; numpy or tensors).
+
+    ``train=False``: no autograd, the fixed eval background, RGB+D.
+    ``crop_box`` (models.crop.CropBox) excludes gaussians; an all-empty crop
+    gives the background image.
+
+    ``train=True``: differentiable in the parameters and ``c2w``; the
+    random background needs ``generator``; depth is rendered when
+    ``cfg.output_depth_during_training``. The absgrad side channel is
+    ``absgrad_seed`` (zeros [C, 2]) on the kernel path and ``tile_eps``
+    (zeros [T, K, 2], with ``absgrad_scatter``) on the plain path
+    (``cfg.use_pallas=False``). ``cfg.mixed_precision`` is not ported and
+    raises."""
+    if train and cfg.mixed_precision:
         raise NotImplementedError(
-            "the training render needs the compositing backward, which the "
-            "port does not have yet; render with train=False")
+            "mixed_precision=True (bf16 compositing) is not ported; see "
+            "ROADMAP.md queue 2, 'mixed_precision bf16 compositing'")
+    grad_mode = contextlib.nullcontext() if train else torch.no_grad()
+    with grad_mode:
+        return _render(params, c2w, K, width, height, cfg, step, train,
+                       crop_box, device, generator, tile_eps, absgrad_seed)
+
+
+def _render(params, c2w, K, width, height, cfg, step, train, crop_box,
+            device, generator, tile_eps, absgrad_seed):
+    render_depth = cfg.output_depth_during_training or not train
     dev = resolve_device(device)
     params = params.to(dev)
     c2w = torch.as_tensor(c2w, dtype=torch.float32, device=dev)
     K = torch.as_tensor(K, dtype=torch.float32, device=dev)
 
     alive = params.alive
-    if crop_box is not None:
+    if crop_box is not None and not train:
         alive = alive & crop_box.within(params.means)
 
     viewmat = get_viewmat(c2w[None])                        # [1, 4, 4]
@@ -127,13 +161,15 @@ def render(
 
     opac = torch.sigmoid(params.opacities) * proj.compensations[0]
 
-    # an eval render always carries depth: RGB+D channels
-    channels = torch.cat([rgb_g, proj.depths[0][:, None]], dim=-1)
+    channels = rgb_g
+    if render_depth:
+        channels = torch.cat([rgb_g, proj.depths[0][:, None]], dim=-1)
 
+    # the binning is integer work: it takes no gradient
     binning = bin_gaussians(
-        proj.means2d[0],
+        proj.means2d[0].detach(),
         radii,
-        proj.depths[0],
+        proj.depths[0].detach(),
         width,
         height,
         tile_size=cfg.tile_size,
@@ -157,6 +193,7 @@ def render(
             binning.num_tiles_x,
             tile_size=cfg.tile_size,
             tile_counts=binning.tile_counts,
+            absgrad_seed=absgrad_seed,
         )
     else:
         out = rasterize_tiles(
@@ -169,15 +206,19 @@ def render(
             height,
             binning.num_tiles_x,
             tile_size=cfg.tile_size,
+            tile_eps=tile_eps,
         )
 
-    bg = background_color(cfg, dev)
+    bg = background_color(cfg, dev, train, generator)
     rgb = out.render[..., :3] + (1.0 - out.alpha) * bg
     rgb = torch.clamp(rgb, 0.0, 1.0)
 
-    depth = out.render[..., 3:4]
-    # where nothing rendered, fall back to the max depth
-    depth = torch.where(out.alpha > 0, depth, depth.max())
+    depth = None
+    if render_depth:
+        depth = out.render[..., 3:4]
+        # where nothing rendered, fall back to the (detached) max depth
+        far = depth.max().detach()
+        depth = torch.where(out.alpha > 0, depth, far)
 
     counts = binning.tile_counts
     return RenderOutputs(
@@ -193,3 +234,75 @@ def render(
         bbox_truncated=binning.num_truncated,
         tile_max_count=counts.max(),
     )
+
+
+def photometric_loss(
+    pred: torch.Tensor,     # [H, W, 3]
+    gt: torch.Tensor,       # [H, W, 3] float in [0, 1]
+    ssim_lambda: float,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Splatfacto's main loss, (1 - l) L1 + l (1 - SSIM), with the optional
+    pixel mask applied multiplicatively as the reference does."""
+    if mask is not None:
+        pred = pred * mask
+        gt = gt * mask
+    l1 = torch.mean(torch.abs(gt - pred))
+    s = 1.0 - ssim(pred, gt)
+    return (1.0 - ssim_lambda) * l1 + ssim_lambda * s
+
+
+def depth_l1_loss(
+    depth_pred: torch.Tensor,   # [H, W, 1]
+    depth_gt: torch.Tensor,     # [H, W, 1] metric depth (0 = invalid)
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Masked L1 depth loss: multiply by the optional mask, keep the
+    finite, positive GT pixels, mean |pred - gt| over them; 0 when no pixel
+    is valid."""
+    if mask is not None:
+        depth_pred = depth_pred * mask
+        depth_gt = depth_gt * mask
+    valid = (torch.isfinite(depth_pred) & torch.isfinite(depth_gt)
+             & (depth_gt > 0.0))
+    diff = torch.where(valid, torch.abs(depth_pred - depth_gt), 0.0)
+    count = valid.sum()
+    return torch.where(count > 0, diff.sum() / torch.clamp(count, min=1),
+                       0.0)
+
+
+def scale_regularization(params: GaussianParams,
+                         max_gauss_ratio: float) -> torch.Tensor:
+    """Splatfacto's anisotropy penalty: 0.1 * mean over alive of
+    (max(exp-scale ratio, r_max) - r_max)."""
+    s = torch.exp(params.scales)
+    ratio = s.amax(-1) / torch.clamp(s.amin(-1), min=1e-12)
+    pen = torch.clamp(ratio, min=max_gauss_ratio) - max_gauss_ratio
+    alive = params.alive
+    n = torch.clamp(alive.sum(), min=1)
+    return 0.1 * torch.where(alive, pen, 0.0).sum() / n
+
+
+def total_loss(
+    outputs: RenderOutputs,
+    gt_rgb: torch.Tensor,
+    gt_depth: Optional[torch.Tensor],
+    params: GaussianParams,
+    cfg: ModelConfig,
+    step: int,
+    mask: Optional[torch.Tensor] = None,
+):
+    """(scalar, dict of terms): the photometric loss, the scale
+    regularization every 10th step when enabled, and the weighted depth L1."""
+    losses = {}
+    losses["main_loss"] = photometric_loss(
+        outputs.rgb, gt_rgb, cfg.ssim_lambda, mask)
+    if cfg.use_scale_regularization:
+        losses["scale_reg"] = (
+            scale_regularization(params, cfg.max_gauss_ratio)
+            if int(step) % 10 == 0 else outputs.rgb.new_zeros(()))
+    if gt_depth is not None and outputs.depth is not None:
+        losses["depth_loss"] = cfg.depth_lambda * depth_l1_loss(
+            outputs.depth, gt_depth, mask)
+    total = sum(losses.values())
+    return total, losses

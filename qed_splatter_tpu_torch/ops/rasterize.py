@@ -4,14 +4,16 @@ Per-tile fixed-K front-to-back compositing over id lists from
 :func:`qed_splatter_tpu_torch.ops.tiles.bin_gaussians`: gather each tile's K
 gaussians, evaluate every alpha for the tile's 256 pixels in global pixel
 coordinates, and reduce with an exclusive cumulative product of
-transmittance. Tiles are processed in chunks under a memory budget. This is
-the port's differentiable oracle for the CUDA compositor, and what
-``render`` runs when ``ModelConfig.use_pallas`` is False.
+transmittance. Tiles are processed in chunks under a memory budget. Its
+gradients are plain autograd. This is the port's differentiable oracle for
+the CUDA compositor, and what ``render`` runs when ``ModelConfig.use_pallas``
+is False, training included (the ``tile_eps`` absgrad side channel and
+:func:`absgrad_scatter`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -41,12 +43,14 @@ def excl_transmittance(alpha: torch.Tensor) -> torch.Tensor:
                      dim=-1)
 
 
-def _composite_chunk(tile_idx, ids, means2d, conics, colors, opacities,
+def _composite_chunk(tile_idx, ids, eps, means2d, conics, colors, opacities,
                      num_tiles_x, tile_size):
     tc, k = ids.shape
     safe = torch.clamp(ids, min=0)
     slot_ok = ids >= 0                           # [Tc, K]
     mg = means2d[safe]                           # [Tc, K, 2]
+    if eps is not None:
+        mg = mg + eps
     cg = conics[safe]                            # [Tc, K, 3]
     colg = colors[safe]                          # [Tc, K, D]
     og = opacities[safe]                         # [Tc, K]
@@ -103,8 +107,13 @@ def rasterize_tiles(
     height: int,
     num_tiles_x: int,
     tile_size: int = 16,
+    tile_eps: Optional[torch.Tensor] = None,
 ) -> RasterizeResult:
-    """Composite per-tile gaussian lists into an image (single camera)."""
+    """Composite per-tile gaussian lists into an image (single camera).
+
+    ``tile_eps`` ([T, K, 2] zeros) is the absgrad side channel: it is added
+    to each slot's gathered screen mean, so its gradient is the per-slot
+    means2d gradient that :func:`absgrad_scatter` reduces."""
     t, k = tile_lists.shape
     num_tiles_y = -(-t // num_tiles_x)
     if num_tiles_x * num_tiles_y != t:
@@ -114,11 +123,26 @@ def rasterize_tiles(
     tid = torch.arange(t, device=means2d.device)
     outs, accs = [], []
     for s in range(0, t, tile_chunk):
-        o, a = _composite_chunk(tid[s:s + tile_chunk],
-                                tile_lists[s:s + tile_chunk], means2d,
-                                conics, colors, opacities, num_tiles_x,
-                                tile_size)
+        sl = slice(s, s + tile_chunk)
+        o, a = _composite_chunk(tid[sl], tile_lists[sl],
+                                None if tile_eps is None else tile_eps[sl],
+                                means2d, conics, colors, opacities,
+                                num_tiles_x, tile_size)
         outs.append(o)
         accs.append(a)
     return tiles_to_image(torch.cat(outs), torch.cat(accs), num_tiles_x,
                           tile_size, width, height)
+
+
+def absgrad_scatter(
+    tile_grads: torch.Tensor,  # [T, K, 2] d(loss)/d(tile_eps)
+    tile_lists: torch.Tensor,  # [T, K] gaussian ids, -1 pad
+    num_gaussians: int,
+) -> torch.Tensor:
+    """Per-gaussian sums of |per-slot screen-mean gradient| ([N, 2]): the
+    absgrad densification signal (gsplat's ``absgrad=True``)."""
+    ids = tile_lists.reshape(-1)
+    safe = torch.where(ids >= 0, ids, num_gaussians)
+    out = tile_grads.new_zeros((num_gaussians + 1, 2))
+    out.index_add_(0, safe, tile_grads.reshape(-1, 2).abs())
+    return out[:num_gaussians]

@@ -1,22 +1,24 @@
-"""Tile compositing through the hand-written CUDA kernel (forward).
+"""Tile compositing through the hand-written CUDA kernels, forward and
+backward.
 
 Counterpart of ``qed_splatter_tpu.ops.rasterize_pallas`` (the module name is
 kept so each function's counterpart is easy to find; nothing here is
-Pallas). The JAX module's forward kernels ``_fwd_kernel`` and
-``_fwd_kernel_skip`` are one CUDA kernel, ``csrc/composite.cu``, with the
-same channel-major interface: slabs ``[T, C, K]`` in, ``[T, D, P]`` colour
-and ``[T, 1, P]`` accumulated alpha out (P = 256 pixels of a 16x16 tile).
+Pallas). The channel-major interface is the JAX module's: slabs
+``[T, C, K]`` in, ``[T, D, P]`` colour and ``[T, 1, P]`` accumulated alpha
+out (P = 256 pixels of a 16x16 tile).
 
-- :func:`composite_tiles` composites all K slots of every tile
-  (``composite_tiles_pallas``).
-- :func:`composite_tiles_chunked` adds the ``K_CHUNK`` depth chunks of
-  ``composite_tiles_chunked``: a tile stops at a chunk boundary s when every
-  pixel has 1 - acc < ``EARLY_STOP_EPS`` or ``tile_counts[t] <= s``.
+- ``csrc/composite.cu`` is the forward (``_fwd_kernel``, ``_fwd_kernel_skip``).
+- ``csrc/composite_bwd.cu`` is the analytic backward (``_bwd_kernel``,
+  ``_bwd_kernel_skip``). It replays exactly the chunks the forward
+  composited, from the forward's per-tile ``chunks_run``.
 
-Each wrapper launches the kernel on CUDA tensors and runs
-:func:`composite_tiles_ref`, its plain PyTorch version, on CPU tensors. The
-analytic backward (``_bwd_kernel``, ``_bwd_kernel_skip``) is not ported yet,
-so nothing here is differentiable.
+:func:`composite_tiles` composites all K slots of every tile;
+:func:`composite_tiles_chunked` adds the ``K_CHUNK`` depth chunks: a tile
+stops at a chunk boundary s when every pixel has 1 - acc < ``EARLY_STOP_EPS``
+or ``tile_counts[t] <= s``. Both are differentiable through one
+``torch.autograd.Function``. On CUDA tensors the kernels run; on CPU tensors
+their plain versions, :func:`composite_tiles_ref` and
+:func:`composite_tiles_bwd_ref`.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from qed_splatter_tpu_torch.cuda import CudaKernel, ptr
 from qed_splatter_tpu_torch.ops.rasterize import (
@@ -34,7 +37,7 @@ from qed_splatter_tpu_torch.ops.rasterize import (
     excl_transmittance,
     tile_chunk_size,
 )
-from qed_splatter_tpu_torch.ops.segment import ranked_gather_fwd
+from qed_splatter_tpu_torch.ops.segment import tile_gather_ranked
 
 # Depth-chunk length of composite_tiles_chunked (the JAX package's VMEM bound;
 # kept because the chunk boundaries are where tiles may stop).
@@ -42,11 +45,19 @@ K_CHUNK = 1024
 # A tile whose every pixel has remaining transmittance below this skips the
 # rest of its list (gsplat's per-pixel stop threshold).
 EARLY_STOP_EPS = 1e-4
+# The plain backward keeps the autograd graph of a tile group alive: about
+# 20 [Tc, P, K] f32 intermediates, so its groups are this much smaller than
+# the forward's.
+BWD_GROUP_DIVISOR = 24
 
 COMPOSITE = CudaKernel(
     "composite", "qed_composite_tiles",
     [ctypes.c_void_p] * 8
     + [ctypes.c_int] * 5 + [ctypes.c_float],
+)
+COMPOSITE_BWD = CudaKernel(
+    "composite_bwd", "qed_composite_tiles_bwd",
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5,
 )
 
 
@@ -77,19 +88,43 @@ def _composite_local(means, conics, colors, opac, tile_idx, num_tiles_x,
     return out, w.sum(-1)[:, None, :]
 
 
-def _composite_all(means, conics, colors, opac, num_tiles_x, tile_size):
-    t, _, k = colors.shape
-    p = tile_size * tile_size
-    step = tile_chunk_size(t, p, k, colors.device)
-    tid = torch.arange(t, device=colors.device)
-    outs, accs = [], []
-    for s in range(0, t, step):
-        sl = slice(s, s + step)
-        o, a = _composite_local(means[sl], conics[sl], colors[sl], opac[sl],
-                                tid[sl], num_tiles_x, tile_size)
-        outs.append(o)
-        accs.append(a)
-    return torch.cat(outs), torch.cat(accs)
+def _composite_group(means, conics, colors, opac, tile_idx, num_tiles_x,
+                     tile_size, k_chunk, live):
+    """One group of tiles over depth chunks of ``k_chunk`` (all K when 0),
+    composed as ``out_A + (1 - acc_A) out_B``. ``live(s, acc)`` -> [Tc] bool
+    says which tiles composite the chunk starting at s; a tile that does not
+    sees that chunk as zeros (no contribution, exact zero gradients).
+    Returns (out, acc, chunks run [Tc] int32)."""
+    tc, _, k = colors.shape
+    runs = torch.full((tc,), 1 if k > 0 else 0, dtype=torch.int32,
+                      device=colors.device)
+    if k_chunk <= 0 or k <= k_chunk:
+        out, acc = _composite_local(means, conics, colors, opac, tile_idx,
+                                    num_tiles_x, tile_size)
+        return out, acc, runs
+    out = acc = None
+    for s in range(0, k, k_chunk):
+        parts = [x[..., s:s + k_chunk] for x in (means, conics, colors, opac)]
+        if out is None:
+            out, acc = _composite_local(*parts, tile_idx, num_tiles_x,
+                                        tile_size)
+            continue
+        on = live(s, acc.detach())
+        runs = runs + on.to(torch.int32)
+        parts = [torch.where(on[:, None, None], x, 0.0) for x in parts]
+        o, a = _composite_local(*parts, tile_idx, num_tiles_x, tile_size)
+        trans = 1.0 - acc
+        out = out + trans * o
+        acc = acc + trans * a
+    return out, acc, runs
+
+
+def _forward_live(counts):
+    """The forward's chunk predicate (``_fwd_kernel_skip``)."""
+    def live(s, acc):
+        return ((1.0 - acc[:, 0, :]).amax(-1) >= EARLY_STOP_EPS) & (
+            counts > s)
+    return live
 
 
 def composite_tiles_ref(
@@ -111,37 +146,75 @@ def composite_tiles_ref(
     tiles where the chunk is live, zero elsewhere. ``chunks_run`` ([T]
     int32), when given, receives the number of chunks each tile composited."""
     t, _, k = g_colors.shape
-    if k_chunk <= 0 or k <= k_chunk:
-        out, acc = _composite_all(g_means, g_conics, g_colors, g_opac,
-                                  num_tiles_x, tile_size)
-        if chunks_run is not None:
-            chunks_run.fill_(1 if k > 0 else 0)
-        return out, acc
+    dev = g_colors.device
     if tile_counts is None:
-        tile_counts = torch.full((t,), k, dtype=torch.int32,
-                                 device=g_colors.device)
-    out = acc = None
-    runs = torch.zeros((t,), dtype=torch.int32, device=g_colors.device)
-    for s in range(0, k, k_chunk):
-        e = min(s + k_chunk, k)
-        parts = (g_means[..., s:e], g_conics[..., s:e], g_colors[..., s:e],
-                 g_opac[..., s:e])
-        if out is None:
-            out, acc = _composite_all(*parts, num_tiles_x, tile_size)
-            runs += 1
-            continue
-        live = ((1.0 - acc[:, 0, :]).amax(-1) >= EARLY_STOP_EPS) & (
-            tile_counts > s)
-        o, a = _composite_all(*parts, num_tiles_x, tile_size)
-        o = torch.where(live[:, None, None], o, 0.0)
-        a = torch.where(live[:, None, None], a, 0.0)
-        runs += live.to(torch.int32)
-        trans = 1.0 - acc
-        out = out + trans * o
-        acc = acc + trans * a
+        tile_counts = torch.full((t,), k, dtype=torch.int32, device=dev)
+    chunked = 0 < k_chunk < k
+    p = tile_size * tile_size
+    step = tile_chunk_size(t, p, k_chunk if chunked else k, dev)
+    tid = torch.arange(t, device=dev)
+    outs, accs, runs = [], [], []
+    for s in range(0, t, step):
+        sl = slice(s, s + step)
+        o, a, r = _composite_group(
+            g_means[sl], g_conics[sl], g_colors[sl], g_opac[sl], tid[sl],
+            num_tiles_x, tile_size, k_chunk if chunked else 0,
+            _forward_live(tile_counts[sl]))
+        outs.append(o)
+        accs.append(a)
+        runs.append(r)
     if chunks_run is not None:
-        chunks_run.copy_(runs)
-    return out, acc
+        chunks_run.copy_(torch.cat(runs))
+    return torch.cat(outs), torch.cat(accs)
+
+
+def composite_tiles_bwd_ref(
+    g_means, g_conics, g_colors, g_opac,   # the forward's slabs
+    gout: torch.Tensor,                    # [T, D, P] cotangent of out
+    gacc: torch.Tensor,                    # [T, 1, P] cotangent of acc
+    num_tiles_x: int,
+    tile_size: int = 16,
+    tile_counts: Optional[torch.Tensor] = None,
+    k_chunk: int = 0,
+    chunks_run: Optional[torch.Tensor] = None,
+):
+    """Plain version of the backward kernel: the VJP of
+    :func:`composite_tiles_ref` by ``torch.autograd.grad``, one group of
+    tiles at a time under ``tile_chunk_size / BWD_GROUP_DIVISOR`` (never one
+    graph over the whole frame). ``chunks_run`` given replays exactly those
+    chunks per tile, as the kernel does; otherwise the forward's predicate
+    decides. Returns (dmeans, dconics, dcolors, dopac) like the slabs."""
+    t, _, k = g_colors.shape
+    dev = g_colors.device
+    slabs = (g_means, g_conics, g_colors, g_opac)
+    grads = [torch.zeros_like(x) for x in slabs]
+    chunked = 0 < k_chunk < k
+    if tile_counts is None:
+        tile_counts = torch.full((t,), k, dtype=torch.int32, device=dev)
+    p = tile_size * tile_size
+    step = max(1, tile_chunk_size(t, p, k_chunk if chunked else k, dev)
+               // BWD_GROUP_DIVISOR)
+    tid = torch.arange(t, device=dev)
+    for s in range(0, t, step):
+        sl = slice(s, s + step)
+        if chunks_run is not None:
+            runs = chunks_run[sl]
+
+            def live(c0, acc, runs=runs):
+                return runs > c0 // k_chunk
+        else:
+            live = _forward_live(tile_counts[sl])
+        with torch.enable_grad():
+            leaves = [x[sl].detach().requires_grad_(True) for x in slabs]
+            o, a, _ = _composite_group(*leaves, tid[sl], num_tiles_x,
+                                       tile_size, k_chunk if chunked else 0,
+                                       live)
+            part = torch.autograd.grad((o, a), leaves, (gout[sl], gacc[sl]),
+                                       allow_unused=True)
+        for g, d in zip(grads, part):
+            if d is not None:
+                g[sl] = d
+    return tuple(grads)
 
 
 def _check_slabs(g_means, g_conics, g_colors, g_opac, tile_counts,
@@ -171,8 +244,17 @@ def _check_slabs(g_means, g_conics, g_colors, g_opac, tile_counts,
         raise ValueError(f"unsupported device {dev}")
 
 
+def _check_cuda_shapes(tile_size, d):
+    if tile_size != 16:
+        raise ValueError("the CUDA compositor takes 16x16 tiles only")
+    if not 1 <= d <= 4:
+        raise ValueError(f"the CUDA compositor takes 1..4 channels, got {d}")
+
+
 def _composite(g_means, g_conics, g_colors, g_opac, num_tiles_x, tile_size,
                tile_counts, k_chunk, chunks_run):
+    """Forward: the kernel on CUDA tensors, the plain version on CPU ones.
+    ``chunks_run`` ([T] int32) receives the chunks each tile composited."""
     _check_slabs(g_means, g_conics, g_colors, g_opac, tile_counts,
                  chunks_run)
     t, d, k = g_colors.shape
@@ -180,10 +262,7 @@ def _composite(g_means, g_conics, g_colors, g_opac, num_tiles_x, tile_size,
         return composite_tiles_ref(g_means, g_conics, g_colors, g_opac,
                                    num_tiles_x, tile_size, tile_counts,
                                    k_chunk, chunks_run)
-    if tile_size != 16:
-        raise ValueError("the CUDA compositor takes 16x16 tiles only")
-    if not 1 <= d <= 4:
-        raise ValueError(f"the CUDA compositor takes 1..4 channels, got {d}")
+    _check_cuda_shapes(tile_size, d)
     ins = [x.contiguous() for x in (g_means, g_conics, g_colors, g_opac)]
     counts = tile_counts.contiguous() if tile_counts is not None else None
     p = tile_size * tile_size
@@ -201,11 +280,84 @@ def _composite(g_means, g_conics, g_colors, g_opac, num_tiles_x, tile_size,
     return out, acc
 
 
+def composite_tiles_bwd(g_means, g_conics, g_colors, g_opac, gout, gacc,
+                        num_tiles_x: int, tile_size: int, k_chunk: int,
+                        chunks_run: torch.Tensor):
+    """Backward of the compositor for the chunks the forward ran
+    (``chunks_run`` [T] int32): ``csrc/composite_bwd.cu`` on CUDA tensors,
+    :func:`composite_tiles_bwd_ref` on CPU tensors. Returns (dmeans,
+    dconics, dcolors, dopac), zero past each tile's composited chunks."""
+    _check_slabs(g_means, g_conics, g_colors, g_opac, None, chunks_run)
+    t, d, k = g_colors.shape
+    p = tile_size * tile_size
+    for name, x, c in (("gout", gout, d), ("gacc", gacc, 1)):
+        if x.dtype != torch.float32 or tuple(x.shape) != (t, c, p):
+            raise ValueError(f"{name} must be float32 [{t}, {c}, {p}]")
+        if x.device != g_colors.device:
+            raise ValueError(f"{name} is on {x.device}, colors on "
+                             f"{g_colors.device}")
+    if g_colors.device.type == "cpu":
+        return composite_tiles_bwd_ref(g_means, g_conics, g_colors, g_opac,
+                                       gout, gacc, num_tiles_x, tile_size,
+                                       None, k_chunk, chunks_run)
+    _check_cuda_shapes(tile_size, d)
+    ins = [x.contiguous() for x in (g_means, g_conics, g_colors, g_opac,
+                                    gout, gacc, chunks_run)]
+    grads = [torch.empty_like(x) for x in ins[:4]]
+    COMPOSITE_BWD(
+        *(ptr(x) for x in ins), *(ptr(x) for x in grads),
+        t, k, d, num_tiles_x, k_chunk,
+        variant="chunked" if 0 < k_chunk < k else "",
+    )
+    return tuple(grads)
+
+
+class _Composite(torch.autograd.Function):
+    """The compositor with the analytic backward. The forward saves the
+    four slabs and its per-tile chunk count; the backward replays exactly
+    those chunks. ``tile_counts`` only steers the chunk predicate and gets
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, g_means, g_conics, g_colors, g_opac, num_tiles_x,
+                tile_size, tile_counts, k_chunk):
+        runs = torch.empty(g_colors.shape[0], dtype=torch.int32,
+                           device=g_colors.device)
+        out, acc = _composite(g_means, g_conics, g_colors, g_opac,
+                              num_tiles_x, tile_size, tile_counts, k_chunk,
+                              runs)
+        ctx.save_for_backward(g_means, g_conics, g_colors, g_opac, runs)
+        ctx.num_tiles_x, ctx.tile_size, ctx.k_chunk = (
+            num_tiles_x, tile_size, k_chunk)
+        ctx.mark_non_differentiable(runs)
+        return out, acc, runs
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gout, gacc, _):
+        means, conics, colors, opac, runs = ctx.saved_tensors
+        grads = composite_tiles_bwd(
+            means, conics, colors, opac, gout.contiguous(),
+            gacc.contiguous(), ctx.num_tiles_x, ctx.tile_size, ctx.k_chunk,
+            runs)
+        return (*grads, None, None, None, None)
+
+
+def _composite_autograd(g_means, g_conics, g_colors, g_opac, num_tiles_x,
+                        tile_size, tile_counts, k_chunk, chunks_run):
+    out, acc, runs = _Composite.apply(g_means, g_conics, g_colors, g_opac,
+                                      num_tiles_x, tile_size, tile_counts,
+                                      k_chunk)
+    if chunks_run is not None:
+        chunks_run.copy_(runs)
+    return out, acc
+
+
 def composite_tiles(g_means, g_conics, g_colors, g_opac, num_tiles_x: int,
                     tile_size: int = 16):
     """Composite gathered per-tile gaussians -> ([T, D, P], [T, 1, P])."""
-    return _composite(g_means, g_conics, g_colors, g_opac, num_tiles_x,
-                      tile_size, None, 0, None)
+    return _composite_autograd(g_means, g_conics, g_colors, g_opac,
+                               num_tiles_x, tile_size, None, 0, None)
 
 
 def composite_tiles_chunked(g_means, g_conics, g_colors, g_opac,
@@ -219,8 +371,9 @@ def composite_tiles_chunked(g_means, g_conics, g_colors, g_opac,
     the number of chunks each tile composited."""
     k = g_colors.shape[-1]
     k_chunk = K_CHUNK if k > K_CHUNK else 0
-    return _composite(g_means, g_conics, g_colors, g_opac, num_tiles_x,
-                      tile_size, tile_counts, k_chunk, chunks_run)
+    return _composite_autograd(g_means, g_conics, g_colors, g_opac,
+                               num_tiles_x, tile_size, tile_counts, k_chunk,
+                               chunks_run)
 
 
 def rasterize_tiles_pallas(
@@ -235,10 +388,14 @@ def rasterize_tiles_pallas(
     num_tiles_x: int,
     tile_size: int = 16,
     tile_counts: Optional[torch.Tensor] = None,
+    absgrad_seed: Optional[torch.Tensor] = None,
 ) -> RasterizeResult:
-    """Forward render of binned gaussians through the compositing kernel,
-    addressed by depth rank as the JAX eval path does: gather
-    ``params[order]`` once, then each tile's slots by rank."""
+    """Render of binned gaussians through the compositing kernels,
+    addressed by depth rank as the JAX hot path does: gather
+    ``params[order]`` once, then each tile's slots by rank. Differentiable;
+    ``absgrad_seed`` (zeros [N, 2]) receives as its gradient the
+    per-gaussian sums of |slot screen-mean gradients| (see
+    ``ops.segment.tile_gather_ranked``)."""
     t, k = tile_ranks.shape
     d = colors.shape[-1]
     num_tiles_y = -(-t // num_tiles_x)
@@ -246,7 +403,7 @@ def rasterize_tiles_pallas(
         raise ValueError("tile grid mismatch")
     packed = torch.cat([means2d, conics, colors, opacities[:, None]],
                        dim=-1).to(torch.float32)      # [N, 6 + D]
-    g = ranked_gather_fwd(packed, order, tile_ranks)
+    g = tile_gather_ranked(packed, order, tile_ranks, absgrad_seed)
     out, acc = composite_tiles_chunked(
         g[:, 0:2].contiguous(), g[:, 2:5].contiguous(),
         g[:, 5:5 + d].contiguous(), g[:, 5 + d:6 + d].contiguous(),

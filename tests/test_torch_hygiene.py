@@ -34,11 +34,14 @@ def test_port_imports_no_jax(path):
 def test_port_has_its_kernel_sources():
     srcs = sorted(p.name for p in (ROOT / "qed_splatter_tpu_torch" / "csrc")
                   .glob("*.cu"))
-    assert srcs == ["composite.cu", "slab_gather.cu"]
+    assert srcs == ["composite.cu", "composite_bwd.cu", "slab_gather.cu"]
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
-    from qed_splatter_tpu_torch.configs import ModelConfig
+    from qed_splatter_tpu_torch.configs import ModelConfig, \
+        default_optimizers
+    from qed_splatter_tpu_torch.engine.optim import GroupOptimizers
+    from qed_splatter_tpu_torch.engine.train_step import make_train_step
     from qed_splatter_tpu_torch.models import gaussians
     from qed_splatter_tpu_torch.models.splatfacto import render
 
@@ -54,3 +57,6 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         gaussians.from_jax_arrays(
             {f: getattr(params, f).numpy() for f in gaussians.FIELDS})
+    optims = GroupOptimizers(default_optimizers())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_step(ModelConfig(), optims, 16, 16, has_depth=True)

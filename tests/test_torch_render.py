@@ -1,6 +1,9 @@
-"""The whole eval slice: the port's ``render(train=False)`` on the CPU
-against the JAX package's ``render`` (its XLA path and its Pallas path in
-interpret mode), at small sizes, SH degree 3, RGB+D, with a crop box."""
+"""The render slice: the port's ``render`` on the CPU against the JAX
+package's ``render`` (its XLA path and its Pallas path in interpret mode),
+at small sizes, SH degree 3, RGB+D, with a crop box; and the training
+render."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -111,7 +114,26 @@ def test_empty_crop_renders_background():
 
 
 def test_render_refuses_training():
-    _, tp = _scene(n=64, capacity=256)
-    c2w, K = _camera(32, 32, 0.0)
-    with pytest.raises(NotImplementedError):
-        trender(tp, c2w, K, 32, 32, TConfig(), train=True, device="cpu")
+    """``render(train=True)`` is the differentiable training render: it
+    matches the JAX training render (XLA path, black background), its loss
+    backpropagates to finite gradients, and the training options the port
+    does not have (``mixed_precision``) are refused, not ignored."""
+    jp, tp = _scene(n=400, capacity=512, seed=2)
+    c2w, K = _camera(48, 32, 0.7)
+    jo = jrender(jp, jnp.asarray(c2w), jnp.asarray(K), 48, 32,
+                 JConfig(max_per_tile=128, background_color="black"),
+                 jnp.asarray(2500), True)
+    leaves = {f: getattr(tp, f).clone().requires_grad_(True)
+              for f in ("means", "opacities", "features_rest")}
+    to = trender(tp.replace(**leaves), c2w, K, 48, 32,
+                 TConfig(max_per_tile=128, background_color="black"),
+                 step=2500, train=True, device="cpu")
+    _compare(jo, dataclasses.replace(
+        to, rgb=to.rgb.detach(), depth=to.depth.detach(),
+        accumulation=to.accumulation.detach()))
+    loss = to.rgb.mean() + to.depth.mean()
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in grads)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        trender(tp, c2w, K, 48, 32, TConfig(mixed_precision=True),
+                train=True, device="cpu")
