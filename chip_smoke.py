@@ -74,12 +74,14 @@ def fwd_ops_per_pair(d):
 
 
 def bwd_ops_per_pair(d):
-    """f32 ops per (pixel, slot) of composite_bwd.cu: sweep 1 recomputes
-    alpha, T and dw (23 + 2D); sweep 2 recomputes them and adds the
-    transmittance chain and the 6 + D per-pixel terms (43 + 4D, counting one
-    add per pixel for each term's sum over the tile; the shuffles that move
-    the terms are not counted)."""
-    return 66 + 6 * d
+    """f32 ops per (pixel, slot) that the compositing backward needs: the
+    recompute of alpha, T and dw (23 + 2D), the transmittance chain and the
+    6 + D per-pixel terms (20 + 2D, one add per pixel for each term's sum
+    over the tile; the shuffles that move the terms are not counted).
+    S = sum w dw is gout . out + gacc . acc from the forward's outputs, so
+    composite_bwd.cu's first sweep (another 23 + 2D) is the kernel's
+    overhead, not the function's work."""
+    return 43 + 4 * d
 
 
 class SmokeFailure(RuntimeError):

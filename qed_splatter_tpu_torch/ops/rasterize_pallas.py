@@ -174,36 +174,33 @@ def composite_tiles_bwd_ref(
     gacc: torch.Tensor,                    # [T, 1, P] cotangent of acc
     num_tiles_x: int,
     tile_size: int = 16,
-    tile_counts: Optional[torch.Tensor] = None,
     k_chunk: int = 0,
     chunks_run: Optional[torch.Tensor] = None,
 ):
     """Plain version of the backward kernel: the VJP of
     :func:`composite_tiles_ref` by ``torch.autograd.grad``, one group of
     tiles at a time under ``tile_chunk_size / BWD_GROUP_DIVISOR`` (never one
-    graph over the whole frame). ``chunks_run`` given replays exactly those
-    chunks per tile, as the kernel does; otherwise the forward's predicate
-    decides. Returns (dmeans, dconics, dcolors, dopac) like the slabs."""
+    graph over the whole frame). When chunked, ``chunks_run`` (the
+    forward's, [T] int32) is required and replayed exactly per tile, as the
+    kernel does. Returns (dmeans, dconics, dcolors, dopac) like the slabs."""
     t, _, k = g_colors.shape
     dev = g_colors.device
     slabs = (g_means, g_conics, g_colors, g_opac)
     grads = [torch.zeros_like(x) for x in slabs]
     chunked = 0 < k_chunk < k
-    if tile_counts is None:
-        tile_counts = torch.full((t,), k, dtype=torch.int32, device=dev)
+    if chunked and chunks_run is None:
+        raise ValueError("a chunked backward needs the forward's chunks_run")
     p = tile_size * tile_size
     step = max(1, tile_chunk_size(t, p, k_chunk if chunked else k, dev)
                // BWD_GROUP_DIVISOR)
     tid = torch.arange(t, device=dev)
     for s in range(0, t, step):
         sl = slice(s, s + step)
-        if chunks_run is not None:
-            runs = chunks_run[sl]
+        runs = chunks_run[sl] if chunked else None
 
-            def live(c0, acc, runs=runs):
-                return runs > c0 // k_chunk
-        else:
-            live = _forward_live(tile_counts[sl])
+        def live(c0, acc, runs=runs):
+            return runs > c0 // k_chunk
+
         with torch.enable_grad():
             leaves = [x[sl].detach().requires_grad_(True) for x in slabs]
             o, a, _ = _composite_group(*leaves, tid[sl], num_tiles_x,
@@ -299,7 +296,7 @@ def composite_tiles_bwd(g_means, g_conics, g_colors, g_opac, gout, gacc,
     if g_colors.device.type == "cpu":
         return composite_tiles_bwd_ref(g_means, g_conics, g_colors, g_opac,
                                        gout, gacc, num_tiles_x, tile_size,
-                                       None, k_chunk, chunks_run)
+                                       k_chunk, chunks_run)
     _check_cuda_shapes(tile_size, d)
     ins = [x.contiguous() for x in (g_means, g_conics, g_colors, g_opac,
                                     gout, gacc, chunks_run)]
