@@ -6,10 +6,13 @@
 Phases (any failure exits non-zero):
 1. build every CUDA kernel under ``qed_splatter_tpu_torch/csrc`` with nvcc;
 2. hold each forward kernel against its plain PyTorch version on seeded
-   random inputs at the render path's shapes;
+   random inputs at the render path's shapes, the window gather in both of
+   its modes (the plain gather, and the gather fused with the rank mask)
+   at K = 256, 1024, 2048 and an odd K;
 2b. hold the compositing backward kernel against its plain version on
    random slabs and cotangents, unchunked (K = 256) and chunked (K = 2048,
-   chunk 2 composited on some tiles, both skip reasons firing);
+   chunk 2 composited on some tiles, both skip reasons firing), each also
+   with tile counts well below K (exact zeros past the count);
 3. scene A (the bench's canonical point): 131,072 capacity / 80,000 alive,
    SH degree 3, K = 256, 1296x840, 4 orbit cameras through
    ``render(train=False)``;
@@ -25,11 +28,16 @@ path, and fails unless every kernel of the path launched at least once per
 frame or step; checks finite outputs; matches one frame or one step's
 gradients against the plain path (``use_pallas=False``) on the card; holds
 each kernel against its plain version on that run's own inputs; and times
-the frame or step, each kernel, its plain version and its bound.
+the frame or step, each kernel, its plain version and its bound. The window
+gather runs for microseconds, less than a launch costs the host, so its
+times (kernel, plain version and library call alike) are taken from replays
+of a captured CUDA graph.
 
 Prints ``render_ms_per_frame`` / ``train_ms_per_step`` and ``kernels`` JSON
 lines, the card's name and power limit, and as the last line
-``{"ok": true, "device": {...}}``. Needs CUDA; imports no JAX.
+``{"ok": true, "device": {...}}``. The gather's row in ``kernels`` is its
+rank mode, the one the main path launches; the gather mode's numbers are
+under that row's ``gather_mode`` key. Needs CUDA; imports no JAX.
 """
 
 from __future__ import annotations
@@ -108,6 +116,22 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps):
+    """Mean ms per call of ``fn`` on the device alone: ``reps`` calls are
+    captured into one CUDA graph and the graph's replays are timed, so the
+    host's launch cost (which exceeds a kernel of a few microseconds) is
+    not in the number. Every call's result is kept until the end, so each
+    writes a buffer of its own and the outputs do not stay in L2."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kept = [fn() for _ in range(reps)]
+    ms = cuda_ms(graph.replay, 5) / reps
+    del kept, graph
+    return ms
+
+
 def max_abs(a, b):
     return float((a.float() - b.float()).abs().max())
 
@@ -145,6 +169,23 @@ def random_slabs(gen, t, k, d, counts, num_tiles_x, saturate=None):
     return [x.contiguous() for x in (means, conics, colors, opac[:, None])]
 
 
+def chunked_case(gen, t, d, num_tiles_x, k=2048):
+    """Slabs and tile counts for the chunked compositor, K past one chunk:
+    a third of the tiles' counts end inside chunk 1, a sixth start with an
+    opaque stack (saturated in chunk 1), the rest composite both chunks."""
+    from qed_splatter_tpu_torch.ops.rasterize_pallas import K_CHUNK
+
+    counts = torch.randint(1, k + 1, (t,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    counts[: t // 3] = torch.randint(1, K_CHUNK + 1, (t // 3,),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32)
+    saturate = torch.zeros(t, dtype=torch.bool, device="cuda")
+    saturate[t // 3: t // 2] = True
+    counts[saturate] = k
+    return random_slabs(gen, t, k, d, counts, num_tiles_x, saturate), counts
+
+
 def phase_kernel_parity(gen):
     from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
     from qed_splatter_tpu_torch.ops import tiles
@@ -163,15 +204,7 @@ def phase_kernel_parity(gen):
     check(err <= TOL, f"composite K=256 within {TOL}")
 
     k = 2048
-    counts = torch.randint(1, k + 1, (t,), generator=gen, device="cuda",
-                           dtype=torch.int32)
-    counts[: t // 3] = torch.randint(1, rp.K_CHUNK + 1, (t // 3,),
-                                     generator=gen, device="cuda",
-                                     dtype=torch.int32)
-    saturate = torch.zeros(t, dtype=torch.bool, device="cuda")
-    saturate[t // 3: t // 2] = True
-    counts[saturate] = k
-    slabs = random_slabs(gen, t, k, 4, counts, ntx, saturate)
+    slabs, counts = chunked_case(gen, t, 4, ntx, k)
     runs = torch.empty(t, dtype=torch.int32, device="cuda")
     runs_ref = torch.empty_like(runs)
     out, acc = rp.composite_tiles_chunked(*slabs, ntx, tile_counts=counts,
@@ -192,11 +225,22 @@ def phase_kernel_parity(gen):
                                     device="cuda")).values
     starts = torch.sort(torch.randint(0, m, (t,), generator=gen,
                                       device="cuda")).values
-    starts[:4] = torch.tensor([0, m, m + 5, -3], device="cuda")
-    got = tiles.slab_gather(keys, starts, 256, -1)
-    want = tiles.slab_gather_ref(keys, starts, 256, -1)
-    check(torch.equal(got, want), "slab_gather K=256 exact (starts 0, M, "
-          "past M, negative)")
+    starts[:6] = torch.tensor([0, m, m + 5, -3, m - 7, 12345],
+                              device="cuda")
+    n_odd = int((starts & 1).sum())
+    for k in (256, 1024, 2048, 333):
+        counts = torch.randint(0, 2 * k, (t,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        counts[6:10] = torch.tensor([0, 1, k, k + 1], device="cuda",
+                                    dtype=torch.int32)
+        got = tiles.slab_gather(keys, starts, k, -1)
+        want = tiles.slab_gather_ref(keys, starts, k, -1)
+        check(torch.equal(got, want), f"slab_gather K={k} exact (starts 0, "
+              f"M, past M, negative, M - 7; {n_odd} odd starts)")
+        got = tiles.slab_ranks(keys, starts, counts, k, 18)
+        want = tiles.slab_ranks_ref(keys, starts, counts, k, 18)
+        check(torch.equal(got, want), f"slab_gather rank mode K={k} exact "
+              "(counts 0, 1, K, past K)")
     torch.cuda.synchronize()
 
 
@@ -212,7 +256,7 @@ def bwd_channel_errs(got, want):
     return errs
 
 
-def check_bwd(got, want, runs, k_chunk, label):
+def check_bwd(got, want, runs, k_chunk, label, counts=None):
     errs = bwd_channel_errs(got, want)
     abs_err = max(max_abs(g, w) for g, w in zip(got, want))
     print(f"  {label}: per-channel max err / max |plain| "
@@ -225,6 +269,12 @@ def check_bwd(got, want, runs, k_chunk, label):
         past = slot >= (runs.long() * k_chunk)[:, None, None]
         check(all(not bool(torch.where(past, g, 0.0).any()) for g in got),
               f"{label}: exact zeros past each tile's composited chunks")
+    if counts is not None:
+        k = got[0].shape[-1]
+        slot = torch.arange(k, device="cuda")[None, None, :]
+        past = slot >= counts.long()[:, None, None]
+        check(all(not bool(torch.where(past, g, 0.0).any()) for g in got),
+              f"{label}: exact zeros at and past each tile's count")
     return abs_err
 
 
@@ -244,17 +294,17 @@ def phase_bwd_parity(gen):
     got = rp.composite_tiles_bwd(*slabs, gout, gacc, ntx, 16, 0, runs)
     want = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, ntx)
     check_bwd(got, want, runs, 0, f"composite_bwd T={t} K=256 D={d}")
+    # tile counts well below K: the kernel stops at the count
+    low = torch.randint(0, 97, (t,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    slabs = random_slabs(gen, t, 256, d, low, ntx)
+    got = rp.composite_tiles_bwd(*slabs, gout, gacc, ntx, 16, 0, runs, low)
+    want = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, ntx)
+    check_bwd(got, want, runs, 0,
+              f"composite_bwd T={t} K=256 D={d}, counts below 97", low)
 
     k = 2048
-    counts = torch.randint(1, k + 1, (t,), generator=gen, device="cuda",
-                           dtype=torch.int32)
-    counts[: t // 3] = torch.randint(1, rp.K_CHUNK + 1, (t // 3,),
-                                     generator=gen, device="cuda",
-                                     dtype=torch.int32)
-    saturate = torch.zeros(t, dtype=torch.bool, device="cuda")
-    saturate[t // 3: t // 2] = True
-    counts[saturate] = k
-    slabs = random_slabs(gen, t, k, d, counts, ntx, saturate)
+    slabs, counts = chunked_case(gen, t, d, ntx, k)
     runs = torch.empty(t, dtype=torch.int32, device="cuda")
     rp.composite_tiles_chunked(*slabs, ntx, tile_counts=counts,
                                chunks_run=runs)
@@ -271,6 +321,10 @@ def phase_bwd_parity(gen):
                                       k_chunk=rp.K_CHUNK, chunks_run=runs)
     check_bwd(got, want, runs, rp.K_CHUNK,
               f"composite_bwd chunked T={t} K={k} D={d}")
+    got = rp.composite_tiles_bwd(*slabs, gout, gacc, ntx, 16, rp.K_CHUNK,
+                                 runs, counts)
+    check_bwd(got, want, runs, rp.K_CHUNK,
+              f"composite_bwd chunked and counted T={t} K={k} D={d}", counts)
     torch.cuda.synchronize()
 
 
@@ -375,9 +429,12 @@ def phase_scene(label, n_alive, capacity, k_cap, n_cams, reps, seed,
     launches = {"composite": rp.COMPOSITE.launches,
                 "slab_gather": tiles.SLAB_GATHER.launches}
     chunked = rp.COMPOSITE.variant_launches.get("chunked", 0)
-    print(f"  launches {launches}, chunked composite launches {chunked}")
+    ranked = tiles.SLAB_GATHER.variant_launches.get("ranks", 0)
+    print(f"  launches {launches}, chunked composite launches {chunked}, "
+          f"rank-mode slab_gather launches {ranked}")
     check(all(v >= n_cams for v in launches.values()),
           "every kernel launched on the main path")
+    check(ranked >= n_cams, "the binning took the gather's fused rank mode")
     if k_cap > rp.K_CHUNK:
         check(chunked >= n_cams, "the compositor's chunked path ran")
     for o in outs:
@@ -407,7 +464,7 @@ def phase_scene(label, n_alive, capacity, k_cap, n_cams, reps, seed,
 
     # --- the kernels on this frame's own inputs
     with Capture(rp, "composite_tiles_chunked") as cap_c, \
-            Capture(tiles, "slab_gather") as cap_g:
+            Capture(tiles, "slab_ranks") as cap_g:
         render(params, c2w, K, W, H, cfg, step=30_000)
     torch.cuda.synchronize()
     g_args, g_kw = cap_c.args, cap_c.kwargs
@@ -436,10 +493,16 @@ def phase_scene(label, n_alive, capacity, k_cap, n_cams, reps, seed,
         print(f"  tiles that skipped a chunk: {int(skipped.sum())} of {t} "
               f"({skip_count} by count, {skip_sat} saturated)")
 
-    keys, starts, kk, fill = cap_g.args
+    keys, starts, g_counts, kk, rank_bits = cap_g.args
+    fill = -1
+    got = tiles.slab_ranks(keys, starts, g_counts, kk, rank_bits)
+    want = tiles.slab_ranks_ref(keys, starts, g_counts, kk, rank_bits)
+    check(torch.equal(got, want), "slab_gather rank mode on frame inputs "
+          "exact")
     got = tiles.slab_gather(keys, starts, kk, fill)
     want = tiles.slab_gather_ref(keys, starts, kk, fill)
     check(torch.equal(got, want), "slab_gather on frame inputs exact")
+    del got, want
 
     # --- times
     fr = []
@@ -464,19 +527,59 @@ def phase_scene(label, n_alive, capacity, k_cap, n_cams, reps, seed,
     b_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
     b_ops = ops / PEAK_F32_PER_S * 1e3
 
+    # the gather runs for microseconds, less than a launch costs the host:
+    # its times are the device's own (replays of a captured CUDA graph);
+    # the host-issued times of the wrapper and the library call are printed
     m = keys.numel()
-    ms_g = cuda_ms(lambda: tiles.slab_gather(keys, starts, kk, fill), 50)
-    plain_g = cuda_ms(lambda: tiles.slab_gather_ref(keys, starts, kk, fill),
-                      20)
     padded = torch.cat([keys, torch.full((kk,), fill, dtype=keys.dtype,
                                          device="cuda")])
     windows = padded.unfold(0, kk, 1)              # a view, no copy
     st = starts.clamp(0, m)
-    lib_g = cuda_ms(lambda: torch.index_select(windows, 0, st), 50)
+    k_idx = torch.arange(kk, device="cuda")[None, :]
+    cap_counts = g_counts.clamp(max=kk)[:, None]
+    mask = (1 << rank_bits) - 1
+    minus = torch.full((starts.numel(), kk), -1, dtype=torch.int64,
+                       device="cuda")
+
+    def lib_ranks():
+        # one library gather, then the rank mask in three elementwise calls
+        slabs = torch.index_select(windows, 0, st)
+        return torch.where(k_idx < cap_counts, slabs & mask, minus)
+
+    check(torch.equal(lib_ranks(), tiles.slab_ranks(
+        keys, starts, g_counts, kk, rank_bits)), "the library form of the "
+        "rank mode agrees")
+    calls = {
+        "gather": lambda: tiles.slab_gather(keys, starts, kk, fill),
+        "gather_plain": lambda: tiles.slab_gather_ref(keys, starts, kk, fill),
+        "gather_lib": lambda: torch.index_select(windows, 0, st),
+        "ranks": lambda: tiles.slab_ranks(keys, starts, g_counts, kk,
+                                          rank_bits),
+        "ranks_plain": lambda: tiles.slab_ranks_ref(keys, starts, g_counts,
+                                                    kk, rank_bits),
+        "ranks_lib": lib_ranks,
+    }
+    host = {name: cuda_ms(fn, 50) for name, fn in calls.items()}
+    before = tiles.SLAB_GATHER.launches
+    dev = {name: graph_ms(fn, 20) for name, fn in calls.items()}
+    check(tiles.SLAB_GATHER.launches > before, "the captured graphs hold "
+          "the wrapper's own launches")
+    ms_g, plain_g, lib_g = dev["gather"], dev["gather_plain"], dev["gather_lib"]
+    ms_r, plain_r, lib_r = dev["ranks"], dev["ranks_plain"], dev["ranks_lib"]
     g_bytes = (m + starts.numel() + starts.numel() * kk) * 8
-    print(f"  composite {ms_c:.4f} ms (plain {plain_c:.3f} ms), "
-          f"slab_gather {ms_g:.4f} ms (plain {plain_g:.4f}, index_select "
-          f"{lib_g:.4f} ms)")
+    # rank mode reads only the keys below each tile's count
+    r_read = int(torch.minimum(g_counts.long().clamp(min=0, max=kk),
+                               (m - st)).sum())
+    r_bytes = (r_read + starts.numel() + starts.numel() * kk) * 8 \
+        + g_counts.numel() * 4
+    print(f"  composite {ms_c:.4f} ms (plain {plain_c:.3f} ms)")
+    print(f"  slab_gather on the device: gather mode {ms_g:.4f} ms (plain "
+          f"{plain_g:.4f}, index_select {lib_g:.4f} ms), rank mode "
+          f"{ms_r:.4f} ms (plain {plain_r:.4f}, index_select and the mask "
+          f"{lib_r:.4f} ms)")
+    print("  slab_gather issued by the host, launch cost included: "
+          + ", ".join(f"{name} {v:.4f}" for name, v in host.items()))
+    del padded, windows, minus
 
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile
@@ -506,9 +609,17 @@ def phase_scene(label, n_alive, capacity, k_cap, n_cams, reps, seed,
     entries = [
         entry("composite", label_k, launches["composite"], err_abs, ms_c,
               plain_c, None, b_bytes, b_ops),
-        entry("slab_gather", label_k, launches["slab_gather"], 0.0, ms_g,
-              plain_g, lib_g, g_bytes / PEAK_BYTES_PER_S * 1e3, 0.0),
+        # one kernel, two modes: the row is the rank mode, which is every
+        # launch of the main path (checked above); the gather mode, launched
+        # here only to be held and timed, goes beside it
+        entry("slab_gather", label_k + ", rank mode", launches["slab_gather"],
+              0.0, ms_r, plain_r, lib_r, r_bytes / PEAK_BYTES_PER_S * 1e3,
+              0.0),
     ]
+    entries[-1]["gather_mode"] = {
+        "launches": launches["slab_gather"] - ranked, "max_abs_err": 0.0,
+        "ms": ms_g, "plain_ms": plain_g, "library_ms": lib_g,
+        "bound_ms": g_bytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
     del outs, plain, params
     torch.cuda.empty_cache()
     return entries, frame_ms
@@ -582,10 +693,14 @@ def phase_train(label, n_alive, capacity, k_cap, n_warm, n_timed, seed,
                 "composite_bwd": rp.COMPOSITE_BWD.launches,
                 "slab_gather": tiles.SLAB_GATHER.launches}
     chunked_bwd = rp.COMPOSITE_BWD.variant_launches.get("chunked", 0)
+    ranked = tiles.SLAB_GATHER.variant_launches.get("ranks", 0)
     print(f"  launches {launches}, chunked composite_bwd launches "
-          f"{chunked_bwd}")
+          f"{chunked_bwd}, rank-mode slab_gather launches {ranked}")
     check(all(v >= n_steps for v in launches.values()),
           f"every kernel launched at least once per step ({n_steps} steps)")
+    check(launches["composite_bwd"] == n_steps
+          and launches["slab_gather"] == n_steps == ranked,
+          "one composite_bwd and one rank-mode slab_gather per step")
     if k_cap > rp.K_CHUNK:
         check(chunked_bwd >= n_steps, "the chunked backward ran")
     print(f"  loss per step: {', '.join(f'{x:.5f}' for x in losses)}")
@@ -637,20 +752,23 @@ def phase_train(label, n_alive, capacity, k_cap, n_warm, n_timed, seed,
 
     args = cap.args
     slabs, gout, gacc = args[:4], args[4], args[5]
-    ntx, ts, k_chunk, runs = args[6], args[7], args[8], args[9]
+    ntx, ts, k_chunk, runs, counts = args[6:11]
+    check(counts is not None and counts.data_ptr()
+          == cap_f.kwargs["tile_counts"].data_ptr(),
+          "the step's backward was given the tile counts")
     t, d, k = slabs[2].shape
     kern = rp.composite_tiles_bwd(*args)
     ref = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, ntx, ts,
                                      k_chunk=k_chunk, chunks_run=runs)
     err = check_bwd(kern, ref, runs, k_chunk,
-                    f"composite_bwd on the step's slabs (T={t}, K={k})")
+                    f"composite_bwd on the step's slabs (T={t}, K={k})",
+                    counts)
     del kern, ref
     ms = cuda_ms(lambda: rp.composite_tiles_bwd(*args), 20)
     plain_ms = cuda_ms(lambda: rp.composite_tiles_bwd_ref(
         *slabs, gout, gacc, ntx, ts, k_chunk=k_chunk, chunks_run=runs), 1)
-    counts = cap_f.kwargs["tile_counts"]
     in_bytes = (sum(x.numel() for x in slabs) + gout.numel() + gacc.numel()
-                + runs.numel()) * 4
+                + runs.numel() + counts.numel()) * 4
     out_bytes = sum(x.numel() for x in slabs) * 4
     ops = 256 * needed_slots(counts, runs, k, k_chunk) * bwd_ops_per_pair(d)
     bound_b = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3

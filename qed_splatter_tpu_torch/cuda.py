@@ -47,24 +47,27 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, defines: Sequence[str] = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join((*NVCC_FLAGS, *defines))
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(names: Sequence[str]) -> float:
+def build(names: Sequence[str], defines: Sequence[str] = ()) -> float:
     """Compile the named sources that are not built yet, one ``nvcc`` per
-    source, all started together. Returns the wall seconds spent."""
+    source, all started together. ``defines`` (``-DNAME=value`` flags) select
+    a tuning variant of a source. Returns the wall seconds spent."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs: List[tuple] = []
     for name in names:
-        out = _lib_path(name)
+        out = _lib_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
@@ -84,13 +87,13 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    if name not in _LIBS:
-        path = _lib_path(name)
+def _lib(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    path = _lib_path(name, defines)
+    if str(path) not in _LIBS:
         if not path.exists():
-            build([name])
-        _LIBS[name] = ctypes.CDLL(str(path))
-    return _LIBS[name]
+            build([name], defines)
+        _LIBS[str(path)] = ctypes.CDLL(str(path))
+    return _LIBS[str(path)]
 
 
 class CudaKernel:
@@ -99,11 +102,14 @@ class CudaKernel:
     ``argtypes`` lists ctypes types for the arguments before the trailing
     stream (``c_void_p`` for every pointer, ``c_int``/``c_float`` for
     scalars); the stream is appended from ``torch.cuda.current_stream()``.
+    ``defines`` builds a tuning variant of the source (see :func:`build`).
     """
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+    def __init__(self, source: str, symbol: str, argtypes: Sequence,
+                 defines: Sequence[str] = ()):
         self.source = source
         self.symbol = symbol
+        self.defines = tuple(defines)
         self.argtypes = list(argtypes) + [ctypes.c_void_p]
         self.launches = 0
         # launches by named code path inside the kernel (e.g. "chunked")
@@ -116,7 +122,7 @@ class CudaKernel:
 
     def __call__(self, *args, variant: str = "") -> None:
         if self._fn is None:
-            fn = getattr(_lib(self.source), self.symbol)
+            fn = getattr(_lib(self.source, self.defines), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn

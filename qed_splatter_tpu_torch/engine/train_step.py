@@ -44,10 +44,11 @@ from qed_splatter_tpu_torch.models.gaussians import (
 from qed_splatter_tpu_torch.models.splatfacto import render, total_loss
 from qed_splatter_tpu_torch.ops.rasterize import absgrad_scatter
 
-_BILATERAL = ("use_bilateral_grid=True is not ported; see ROADMAP.md queue 1, "
-              "'models/bilateral_grid.py'")
+_BILATERAL = ("use_bilateral_grid=True is not ported; see ROADMAP.md, 'Next, "
+              "in order' item 3, 'models/bilateral_grid.py'")
 _MIXED = ("mixed_precision=True (bf16 compositing) is not ported; see "
-          "ROADMAP.md queue 2, 'mixed_precision bf16 compositing'")
+          "ROADMAP.md, 'Next, in order' item 2, 'mixed_precision bf16 "
+          "compositing'")
 
 
 @dataclasses.dataclass

@@ -112,7 +112,8 @@ def render(
     if train and cfg.mixed_precision:
         raise NotImplementedError(
             "mixed_precision=True (bf16 compositing) is not ported; see "
-            "ROADMAP.md queue 2, 'mixed_precision bf16 compositing'")
+            "ROADMAP.md, 'Next, in order' item 2, 'mixed_precision bf16 "
+            "compositing'")
     grad_mode = contextlib.nullcontext() if train else torch.no_grad()
     with grad_mode:
         return _render(params, c2w, K, width, height, cfg, step, train,

@@ -9,8 +9,10 @@ out (P = 256 pixels of a 16x16 tile).
 
 - ``csrc/composite.cu`` is the forward (``_fwd_kernel``, ``_fwd_kernel_skip``).
 - ``csrc/composite_bwd.cu`` is the analytic backward (``_bwd_kernel``,
-  ``_bwd_kernel_skip``). It replays exactly the chunks the forward
-  composited, from the forward's per-tile ``chunks_run``.
+  ``_bwd_kernel_skip``): a front-to-back sweep for T and a back-to-front
+  sweep for what lies behind each slot. It replays exactly the chunks the
+  forward composited (the forward's per-tile ``chunks_run``) and stops at
+  the tile's count.
 
 :func:`composite_tiles` composites all K slots of every tile;
 :func:`composite_tiles_chunked` adds the ``K_CHUNK`` depth chunks: a tile
@@ -18,7 +20,9 @@ stops at a chunk boundary s when every pixel has 1 - acc < ``EARLY_STOP_EPS``
 or ``tile_counts[t] <= s``. Both are differentiable through one
 ``torch.autograd.Function``. On CUDA tensors the kernels run; on CPU tensors
 their plain versions, :func:`composite_tiles_ref` and
-:func:`composite_tiles_bwd_ref`.
+:func:`composite_tiles_bwd_sweeps_ref` (the backward kernel's algorithm in
+plain PyTorch). :func:`composite_tiles_bwd_ref`, the autograd VJP of the
+plain forward, is the oracle both are held against.
 """
 
 from __future__ import annotations
@@ -49,6 +53,9 @@ EARLY_STOP_EPS = 1e-4
 # 20 [Tc, P, K] f32 intermediates, so its groups are this much smaller than
 # the forward's.
 BWD_GROUP_DIVISOR = 24
+# The backward stops carrying T below this (float32's normal range ends at
+# 1.2e-38); gradients behind are zero.
+TRANS_MIN = 1e-30
 
 COMPOSITE = CudaKernel(
     "composite", "qed_composite_tiles",
@@ -57,7 +64,7 @@ COMPOSITE = CudaKernel(
 )
 COMPOSITE_BWD = CudaKernel(
     "composite_bwd", "qed_composite_tiles_bwd",
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5,
+    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5,
 )
 
 
@@ -214,6 +221,119 @@ def composite_tiles_bwd_ref(
     return tuple(grads)
 
 
+def slots_run(t, k, k_chunk, chunks_run, tile_counts, device):
+    """[T] int64: how many leading slots of each tile the backward runs,
+    ``min(chunks_run * k_chunk, tile_counts, K)`` over what is given."""
+    n = torch.full((t,), k, dtype=torch.int64, device=device)
+    if chunks_run is not None:
+        n = torch.minimum(n, chunks_run.long() * (k_chunk if 0 < k_chunk < k
+                                                  else k))
+    if tile_counts is not None:
+        n = torch.minimum(n, tile_counts.long().clamp(min=0))
+    return n
+
+
+def composite_tiles_bwd_sweeps_ref(
+    g_means, g_conics, g_colors, g_opac,   # the forward's slabs
+    gout: torch.Tensor,                    # [T, D, P] cotangent of out
+    gacc: torch.Tensor,                    # [T, 1, P] cotangent of acc
+    num_tiles_x: int,
+    tile_size: int = 16,
+    k_chunk: int = 0,
+    chunks_run: Optional[torch.Tensor] = None,
+    tile_counts: Optional[torch.Tensor] = None,
+    total: Optional[torch.Tensor] = None,
+):
+    """Plain version of the backward kernel's algorithm, one group of tiles
+    at a time: the direct chain rule with
+
+      dalpha_k = T_k (dw_k - Q_k),
+
+    T from a front-to-back sweep (zero where it falls below ``TRANS_MIN``)
+    and Q_k, what lies behind slot k composited on its own, from a
+    back-to-front sweep: Q_{k-1} = alpha_k dw_k + (1 - alpha_k) Q_k. Only
+    the slots :func:`slots_run` counts are replayed; the rest get exact
+    zeros. Returns (dmeans, dconics, dcolors, dopac).
+
+    ``total`` ([T, P], S = sum_c gout_c out_c + gacc acc of the forward's
+    outputs) selects the one-sweep form instead, which the kernel does not
+    use: dalpha_k = T_k dw_k - (S - prefix_k) / (1 - alpha_k), with no
+    back-to-front sweep. It is here so that its error can be measured."""
+    t, d, k = g_colors.shape
+    dev = g_colors.device
+    dt = g_colors.dtype
+    chunked = 0 < k_chunk < k
+    if chunked and chunks_run is None:
+        raise ValueError("a chunked backward needs the forward's chunks_run")
+    n_run = slots_run(t, k, k_chunk, chunks_run if chunked else None,
+                      tile_counts, dev)
+    grads = [torch.zeros_like(x) for x in (g_means, g_conics, g_colors,
+                                           g_opac)]
+    p = tile_size * tile_size
+    step = max(1, tile_chunk_size(t, p, k, dev) // BWD_GROUP_DIVISOR)
+    half = tile_size * 0.5
+    pix = torch.arange(p, device=dev)
+    pxl = (pix % tile_size).to(dt) + (0.5 - half)              # [P]
+    pyl = (pix // tile_size).to(dt) + (0.5 - half)
+    slot = torch.arange(k, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    for s in range(0, t, step):
+        sl = slice(s, s + step)
+        tid = torch.arange(s, min(s + step, t), device=dev)
+        ox = ((tid % num_tiles_x) * tile_size).to(dt)
+        oy = ((tid // num_tiles_x) * tile_size).to(dt)
+        run = slot[None, :] < n_run[sl, None]                  # [Tc, K]
+        n_max = int(n_run[sl].max()) if tid.numel() else 0
+        dx = (g_means[sl, 0] - (ox + half)[:, None])[:, None, :] \
+            - pxl[None, :, None]                               # [Tc, P, K]
+        dy = (g_means[sl, 1] - (oy + half)[:, None])[:, None, :] \
+            - pyl[None, :, None]
+        ca = g_conics[sl, None, 0, :]
+        cb = g_conics[sl, None, 1, :]
+        cc = g_conics[sl, None, 2, :]
+        sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+        e = torch.exp(-sigma)
+        a_raw = g_opac[sl, None, 0, :] * e
+        keep = (sigma >= 0.0) & (a_raw > ALPHA_EPS) & run[:, None, :]
+        alpha = torch.where(keep, torch.clamp(a_raw, max=ALPHA_MAX), 0.0)
+        trans = excl_transmittance(alpha)                      # sweep 1
+        trans = torch.where(trans >= TRANS_MIN, trans, zero)
+        go = gout[sl]                                          # [Tc, D, P]
+        dw = gacc[sl, 0, :, None] + torch.einsum(
+            "tdp,tdk->tpk", go, g_colors[sl])
+        w = alpha * trans
+        if total is None:
+            dw_k = dw.permute(2, 0, 1).contiguous()            # [K, Tc, P]
+            alpha_k = alpha.permute(2, 0, 1).contiguous()
+            diff_k = torch.zeros_like(dw_k)                    # dw_k - Q_k
+            behind = torch.zeros_like(dw_k[0])                 # Q, [Tc, P]
+            for j in range(n_max - 1, -1, -1):                 # sweep 2
+                diff_k[j] = dw_k[j] - behind
+                behind = behind + alpha_k[j] * diff_k[j]
+            dalpha = trans * diff_k.permute(1, 2, 0)
+        else:
+            rest = total[sl, :, None] - torch.cumsum(w * dw, dim=-1)
+            dalpha = trans * dw - rest / (1.0 - alpha)
+        da = torch.where(keep & (a_raw <= ALPHA_MAX), dalpha, zero)
+        dsig = -a_raw * da
+        r0 = (dsig * dx).sum(1)                                # [Tc, K]
+        r1 = (dsig * dy).sum(1)
+        cak, cbk, cck = ca[:, 0], cb[:, 0], cc[:, 0]
+
+        def put(x):                       # exact zeros past the replayed slots
+            return torch.where(run, x, zero)
+
+        grads[0][sl, 0] = put(cak * r0 + cbk * r1)
+        grads[0][sl, 1] = put(cck * r1 + cbk * r0)
+        grads[1][sl, 0] = put(0.5 * (dsig * dx * dx).sum(1))
+        grads[1][sl, 1] = put((dsig * dx * dy).sum(1))
+        grads[1][sl, 2] = put(0.5 * (dsig * dy * dy).sum(1))
+        grads[3][sl, 0] = put((da * e).sum(1))
+        grads[2][sl] = torch.where(run[:, None, :],
+                                   torch.einsum("tdp,tpk->tdk", go, w), zero)
+    return tuple(grads)
+
+
 def _check_slabs(g_means, g_conics, g_colors, g_opac, tile_counts,
                  chunks_run):
     if g_colors.dim() != 3:
@@ -279,12 +399,17 @@ def _composite(g_means, g_conics, g_colors, g_opac, num_tiles_x, tile_size,
 
 def composite_tiles_bwd(g_means, g_conics, g_colors, g_opac, gout, gacc,
                         num_tiles_x: int, tile_size: int, k_chunk: int,
-                        chunks_run: torch.Tensor):
-    """Backward of the compositor for the chunks the forward ran
-    (``chunks_run`` [T] int32): ``csrc/composite_bwd.cu`` on CUDA tensors,
-    :func:`composite_tiles_bwd_ref` on CPU tensors. Returns (dmeans,
-    dconics, dcolors, dopac), zero past each tile's composited chunks."""
-    _check_slabs(g_means, g_conics, g_colors, g_opac, None, chunks_run)
+                        chunks_run: torch.Tensor,
+                        tile_counts: Optional[torch.Tensor] = None):
+    """Backward of the compositor, from the forward's slabs and the chunks
+    it ran (``chunks_run`` [T] int32). With ``tile_counts`` (int32 [T]) a
+    tile stops at its count: slots at or past it are padding (opacity 0).
+    ``csrc/composite_bwd.cu`` on CUDA tensors,
+    :func:`composite_tiles_bwd_sweeps_ref` on CPU tensors. Returns
+    (dmeans, dconics, dcolors, dopac), exact zeros past each tile's
+    replayed slots."""
+    _check_slabs(g_means, g_conics, g_colors, g_opac, tile_counts,
+                 chunks_run)
     t, d, k = g_colors.shape
     p = tile_size * tile_size
     for name, x, c in (("gout", gout, d), ("gacc", gacc, 1)):
@@ -294,15 +419,17 @@ def composite_tiles_bwd(g_means, g_conics, g_colors, g_opac, gout, gacc,
             raise ValueError(f"{name} is on {x.device}, colors on "
                              f"{g_colors.device}")
     if g_colors.device.type == "cpu":
-        return composite_tiles_bwd_ref(g_means, g_conics, g_colors, g_opac,
-                                       gout, gacc, num_tiles_x, tile_size,
-                                       k_chunk, chunks_run)
+        return composite_tiles_bwd_sweeps_ref(
+            g_means, g_conics, g_colors, g_opac, gout, gacc, num_tiles_x,
+            tile_size, k_chunk, chunks_run, tile_counts)
     _check_cuda_shapes(tile_size, d)
     ins = [x.contiguous() for x in (g_means, g_conics, g_colors, g_opac,
                                     gout, gacc, chunks_run)]
+    counts = (ptr(tile_counts.contiguous()) if tile_counts is not None
+              else ctypes.c_void_p(None))
     grads = [torch.empty_like(x) for x in ins[:4]]
     COMPOSITE_BWD(
-        *(ptr(x) for x in ins), *(ptr(x) for x in grads),
+        *(ptr(x) for x in ins), counts, *(ptr(x) for x in grads),
         t, k, d, num_tiles_x, k_chunk,
         variant="chunked" if 0 < k_chunk < k else "",
     )
@@ -311,9 +438,9 @@ def composite_tiles_bwd(g_means, g_conics, g_colors, g_opac, gout, gacc,
 
 class _Composite(torch.autograd.Function):
     """The compositor with the analytic backward. The forward saves the
-    four slabs and its per-tile chunk count; the backward replays exactly
-    those chunks. ``tile_counts`` only steers the chunk predicate and gets
-    no gradient."""
+    four slabs, its per-tile chunk count and the tile counts; the backward
+    replays exactly those chunks, up to each tile's count. ``tile_counts``
+    gets no gradient."""
 
     @staticmethod
     def forward(ctx, g_means, g_conics, g_colors, g_opac, num_tiles_x,
@@ -323,7 +450,8 @@ class _Composite(torch.autograd.Function):
         out, acc = _composite(g_means, g_conics, g_colors, g_opac,
                               num_tiles_x, tile_size, tile_counts, k_chunk,
                               runs)
-        ctx.save_for_backward(g_means, g_conics, g_colors, g_opac, runs)
+        ctx.save_for_backward(g_means, g_conics, g_colors, g_opac, runs,
+                              tile_counts)
         ctx.num_tiles_x, ctx.tile_size, ctx.k_chunk = (
             num_tiles_x, tile_size, k_chunk)
         ctx.mark_non_differentiable(runs)
@@ -332,11 +460,11 @@ class _Composite(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, gout, gacc, _):
-        means, conics, colors, opac, runs = ctx.saved_tensors
+        means, conics, colors, opac, runs, counts = ctx.saved_tensors
         grads = composite_tiles_bwd(
             means, conics, colors, opac, gout.contiguous(),
             gacc.contiguous(), ctx.num_tiles_x, ctx.tile_size, ctx.k_chunk,
-            runs)
+            runs, counts)
         return (*grads, None, None, None, None)
 
 

@@ -13,8 +13,9 @@ reproduced exactly, integer for integer:
    counted; every cell passes the exact circle-tile test;
 3. one sort of the packed key ``tile << rank_bits | depth_rank`` (unique, so
    the sort needs no stability), per-tile boundaries by ``searchsorted``;
-4. the per-tile window gather (the hand-written CUDA kernel
-   ``csrc/slab_gather.cu`` on CUDA tensors) and the front-most-K cap.
+4. the per-tile window gather and the front-most-K cap, one launch of the
+   hand-written CUDA kernel ``csrc/slab_gather.cu`` in its rank mode on CUDA
+   tensors (:func:`slab_ranks`).
 
 Keys are int64: at 327,680 gaussians on 4,293 tiles the packed key uses
 bit 31. The training-only gradient plan (``slab_perm``, ``slab_bounds``,
@@ -32,8 +33,8 @@ from qed_splatter_tpu_torch.cuda import CudaKernel, ptr
 
 SLAB_GATHER = CudaKernel(
     "slab_gather", "qed_slab_gather",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-     ctypes.c_int, ctypes.c_int, ctypes.c_longlong],
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_longlong, ctypes.c_int],
 )
 
 
@@ -63,6 +64,54 @@ def slab_gather_ref(sorted_keys: torch.Tensor, starts: torch.Tensor, k: int,
     return padded[idx]
 
 
+def slab_ranks_ref(sorted_keys: torch.Tensor, starts: torch.Tensor,
+                   counts: torch.Tensor, k: int,
+                   rank_bits: int) -> torch.Tensor:
+    """Plain version of :func:`slab_ranks`: the window gather, then the rank
+    mask and the front-most-k cap (and -1 for a window element past M)."""
+    m = sorted_keys.shape[0]
+    slabs = slab_gather_ref(sorted_keys, starts, k, -1)
+    k_idx = torch.arange(k, device=starts.device)[None, :]
+    in_range = (k_idx < torch.clamp(counts[:, None], max=k)) & (
+        torch.clamp(starts, 0, m)[:, None] + k_idx < m)
+    return torch.where(in_range, slabs & ((1 << rank_bits) - 1),
+                       torch.full_like(slabs, -1))
+
+
+def _launch_slab(sorted_keys, starts, counts, k, fill, rank_bits):
+    if sorted_keys.dtype != torch.int64 or starts.dtype != torch.int64:
+        raise TypeError("the window gather takes int64 keys and starts")
+    if sorted_keys.dim() != 1 or starts.dim() != 1 or k <= 0:
+        raise ValueError("the window gather takes 1-D keys, 1-D starts and "
+                         "k > 0")
+    if sorted_keys.device != starts.device:
+        raise ValueError("keys and starts must be on one device")
+    if counts is not None:
+        if counts.dtype != torch.int32 or counts.shape != starts.shape:
+            raise ValueError("counts must be int32, one per start")
+        if counts.device != starts.device:
+            raise ValueError("counts and starts must be on one device")
+        if not 1 <= rank_bits <= 62:
+            raise ValueError("rank_bits must be in 1..62")
+    if sorted_keys.device.type == "cpu":
+        if counts is None:
+            return slab_gather_ref(sorted_keys, starts, k, fill)
+        return slab_ranks_ref(sorted_keys, starts, counts, k, rank_bits)
+    if sorted_keys.device.type != "cuda":
+        raise ValueError(f"unsupported device {sorted_keys.device}")
+    keys = sorted_keys.contiguous()
+    st = starts.contiguous()
+    t = st.shape[0]
+    out = torch.empty((t, k), dtype=torch.int64, device=keys.device)
+    if counts is None:
+        SLAB_GATHER(ptr(keys), ptr(st), ctypes.c_void_p(None), ptr(out),
+                    keys.shape[0], t, k, fill, 0)
+    else:
+        SLAB_GATHER(ptr(keys), ptr(st), ptr(counts.contiguous()), ptr(out),
+                    keys.shape[0], t, k, -1, rank_bits, variant="ranks")
+    return out
+
+
 def slab_gather(sorted_keys: torch.Tensor, starts: torch.Tensor, k: int,
                 fill: int) -> torch.Tensor:
     """[T, k] windows ``sorted_keys[s_t : s_t + k]`` with ``s_t`` clamped to
@@ -70,22 +119,19 @@ def slab_gather(sorted_keys: torch.Tensor, starts: torch.Tensor, k: int,
 
     CUDA tensors launch ``csrc/slab_gather.cu``; CPU tensors take
     :func:`slab_gather_ref`."""
-    if sorted_keys.dtype != torch.int64 or starts.dtype != torch.int64:
-        raise TypeError("slab_gather takes int64 keys and starts")
-    if sorted_keys.dim() != 1 or starts.dim() != 1 or k <= 0:
-        raise ValueError("slab_gather takes 1-D keys, 1-D starts and k > 0")
-    if sorted_keys.device != starts.device:
-        raise ValueError("keys and starts must be on one device")
-    if sorted_keys.device.type == "cpu":
-        return slab_gather_ref(sorted_keys, starts, k, fill)
-    if sorted_keys.device.type != "cuda":
-        raise ValueError(f"unsupported device {sorted_keys.device}")
-    keys = sorted_keys.contiguous()
-    st = starts.contiguous()
-    t = st.shape[0]
-    out = torch.empty((t, k), dtype=torch.int64, device=keys.device)
-    SLAB_GATHER(ptr(keys), ptr(st), ptr(out), keys.shape[0], t, k, fill)
-    return out
+    return _launch_slab(sorted_keys, starts, None, k, fill, 0)
+
+
+def slab_ranks(sorted_keys: torch.Tensor, starts: torch.Tensor,
+               counts: torch.Tensor, k: int, rank_bits: int) -> torch.Tensor:
+    """[T, k] depth ranks of each tile's front-most ``min(counts[t], k)``
+    pairs, -1 past them: ``sorted_keys[s_t + j] & ((1 << rank_bits) - 1)``.
+    The window gather and the rank mask in one pass. int64 keys and starts,
+    int32 counts.
+
+    CUDA tensors launch ``csrc/slab_gather.cu`` in its rank mode; CPU
+    tensors take :func:`slab_ranks_ref`."""
+    return _launch_slab(sorted_keys, starts, counts, k, 0, rank_bits)
 
 
 def bin_gaussians(
@@ -227,14 +273,8 @@ def bin_gaussians(
     )
     counts = (boundaries[1:] - boundaries[:-1]).to(i32)     # [T]
     starts = boundaries[:-1].contiguous()
-    if use_pallas is False:
-        slabs = slab_gather_ref(packed_sorted, starts, max_per_tile, -1)
-    else:
-        slabs = slab_gather(packed_sorted, starts, max_per_tile, -1)
-    k_idx = torch.arange(max_per_tile, device=dev)[None, :]
-    in_range = k_idx < torch.clamp(counts[:, None], max=max_per_tile)
-    ranks = torch.where(in_range, slabs & ((1 << rank_bits) - 1),
-                        torch.full_like(slabs, -1))
+    gather = slab_ranks_ref if use_pallas is False else slab_ranks
+    ranks = gather(packed_sorted, starts, counts, max_per_tile, rank_bits)
     lists = None
     if with_id_lists:
         lists = torch.where(ranks >= 0, order[torch.clamp(ranks, min=0)],

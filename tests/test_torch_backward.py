@@ -1,8 +1,10 @@
 """The compositing backward and the rank gather's VJP, port vs the JAX
 package on the CPU.
 
-- ``composite_tiles_bwd_ref`` (what the port's autograd runs on CPU
-  tensors, and the CUDA kernel's oracle) against JAX autodiff of the XLA
+- ``composite_tiles_bwd_ref`` (the autograd VJP of the plain composite,
+  the CUDA kernel's oracle) and what the port's autograd runs on CPU
+  tensors (``composite_tiles_bwd_sweeps_ref``, the kernel's algorithm in
+  plain PyTorch) against JAX autodiff of the XLA
   ``rasterize_tiles`` on the same slabs (every slot a gaussian of its own),
   against the VJP of JAX's ``composite_tiles_pallas`` /
   ``composite_tiles_chunked`` (Pallas in interpret mode), and against a
@@ -136,12 +138,20 @@ def test_composite_bwd_matches_pallas_vjp(d, needles):
     xla = _jax_autodiff(slabs, gout, gacc, ntx)
     f64 = _f64_grads(slabs, gout, gacc, ntx)
     auto, _ = _port_autograd(slabs, gout, gacc, ntx)
+    # on CPU tensors the autograd path runs the kernel's algorithm in plain
+    # PyTorch, held to the same bars as the autograd oracle
+    sweeps = trp.composite_tiles_bwd_sweeps_ref(*map(_t, slabs), _t(gout),
+                                                _t(gacc), ntx)
     clear = [0, 2, 3]                     # tile 1 holds the opaque stack
-    for name, r, w, j, x, a in zip(NAMES, ref, want, xla, f64, auto):
+    for name, r, w, j, x, a, s in zip(NAMES, ref, want, xla, f64, auto,
+                                      sweeps):
         _assert_maxrel(r, w, f"{name} vs Pallas VJP", clear)
         _assert_close(r, j, f"{name} vs JAX XLA autodiff")
         _assert_close(r, x.float(), f"{name} vs float64 autograd")
-        assert torch.equal(a, r), f"{name}: autograd path != bwd ref"
+        assert torch.equal(a, s), f"{name}: autograd path != its plain bwd"
+        _assert_maxrel(a, w, f"autograd {name} vs Pallas VJP", clear)
+        _assert_close(a, j, f"autograd {name} vs JAX XLA autodiff")
+        _assert_close(a, x.float(), f"autograd {name} vs float64 autograd")
 
 
 @pytest.mark.parametrize("d,needles", [(3, False), (4, True)])

@@ -82,6 +82,38 @@ def test_slab_gather_kernel_exact(gen):
     for k in (1, 128, 333, 2048):
         assert torch.equal(tiles.slab_gather(keys, starts, k, -1),
                            tiles.slab_gather_ref(keys, starts, k, -1))
+    # a view whose first key is not 16-byte aligned
+    assert torch.equal(tiles.slab_gather(keys[1:], starts, 256, 7),
+                       tiles.slab_gather_ref(keys[1:], starts, 256, 7))
+
+
+@pytest.mark.parametrize("k", [1, 256, 333, 1024, 2048])
+def test_slab_gather_rank_mode_exact(gen, k):
+    """The gather fused with the rank mask: odd starts, starts at and past
+    M, counts of 0, K and above K."""
+    from qed_splatter_tpu_torch.ops import tiles
+
+    m, t = 100_000, 500
+    keys = torch.sort(torch.randint(0, 1 << 40, (m,), generator=gen,
+                                    device="cuda")).values
+    starts = torch.sort(torch.randint(0, m, (t,), generator=gen,
+                                      device="cuda")).values
+    starts[:5] = torch.tensor([-7, m, m + 9, m - 3, 1], device="cuda")
+    counts = torch.randint(0, 2 * k + 2, (t,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    counts[5:9] = torch.tensor([0, 1, k, k + 1], device="cuda",
+                               dtype=torch.int32)
+    before = tiles.SLAB_GATHER.variant_launches.get("ranks", 0)
+    got = tiles.slab_ranks(keys, starts, counts, k, 17)
+    torch.cuda.synchronize()
+    assert tiles.SLAB_GATHER.variant_launches["ranks"] == before + 1
+    assert torch.equal(got, tiles.slab_ranks_ref(keys, starts, counts, k,
+                                                 17))
+    n = torch.minimum(counts.clamp(max=k).long(),
+                      (m - starts.clamp(0, m)))
+    slot = torch.arange(k, device="cuda")[None, :]
+    assert bool((got[slot >= n[:, None]] == -1).all())
+    assert bool((got[slot < n[:, None]] >= 0).all())
 
 
 def test_render_kernels_match_plain_path(gen):
@@ -131,6 +163,62 @@ def test_composite_bwd_kernel_matches_plain(gen, d, k):
     assert _bwd_rel_err(got, want) <= 1e-3
 
 
+@pytest.mark.parametrize("d,k,top", [(4, 256, 100), (3, 256, 256),
+                                     (4, 100, 30), (1, 64, 64)])
+def test_composite_bwd_kernel_stops_at_counts(gen, d, k, top):
+    """With tile counts the kernel replays only the slots below each count
+    (0 and counts above K included) and writes exact zeros past them."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    t = 60
+    slabs = _slabs(gen, t, d, k, 10)
+    counts = torch.randint(0, top + 1, (t,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    counts[:3] = torch.tensor([0, k, k + 50], device="cuda",
+                              dtype=torch.int32)
+    slot = torch.arange(k, device="cuda")[None, None, :]
+    slabs[3] = torch.where(slot < counts[:, None, None], slabs[3], 0.0)
+    gout = torch.randn((t, d, 256), generator=gen, device="cuda")
+    gacc = torch.randn((t, 1, 256), generator=gen, device="cuda")
+    runs = torch.ones(t, dtype=torch.int32, device="cuda")
+    got = rp.composite_tiles_bwd(*slabs, gout, gacc, 10, 16, 0, runs, counts)
+    torch.cuda.synchronize()
+    want = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, 10)
+    assert _bwd_rel_err(got, want) <= 1e-3
+    for g in got:
+        assert not bool(torch.where(slot >= counts[:, None, None], g,
+                                    0.0).any())
+
+
+def test_composite_bwd_kernel_under_opaque_stacks(gen):
+    """Tiles that start with 8 or 24 slots of alpha 0.999 over the whole
+    tile (T down to 1e-72, below float32): the kernel stays finite and
+    within the bar, and agrees with its plain algorithm."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    t, d, k, ntx = 60, 4, 256, 10
+    slabs = _slabs(gen, t, d, k, ntx)
+    tid = torch.arange(t, device="cuda")
+    for tiles_, depth in ((slice(0, 20), 8), (slice(20, 40), 24)):
+        slabs[0][tiles_, 0, :depth] = ((tid[tiles_] % ntx) * 16
+                                       + 8.0)[:, None]
+        slabs[0][tiles_, 1, :depth] = ((tid[tiles_] // ntx) * 16
+                                       + 8.0)[:, None]
+        slabs[1][tiles_, :, :depth] = torch.tensor(
+            [1e-6, 0.0, 1e-6], device="cuda")[None, :, None]
+        slabs[3][tiles_, 0, :depth] = 0.999
+    gout = torch.randn((t, d, 256), generator=gen, device="cuda")
+    gacc = torch.randn((t, 1, 256), generator=gen, device="cuda")
+    runs = torch.ones(t, dtype=torch.int32, device="cuda")
+    got = rp.composite_tiles_bwd(*slabs, gout, gacc, ntx, 16, 0, runs)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    want = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, ntx)
+    plain = rp.composite_tiles_bwd_sweeps_ref(*slabs, gout, gacc, ntx)
+    assert _bwd_rel_err(got, want) <= 1e-3
+    assert _bwd_rel_err(got, plain) <= 1e-3
+
+
 def test_chunked_composite_bwd_kernel_matches_plain(gen):
     """Three chunks: tiles that stop by count or saturation get exact zero
     gradients past their last composited chunk."""
@@ -141,6 +229,10 @@ def test_chunked_composite_bwd_kernel_matches_plain(gen):
     slabs[3] *= 0.1
     counts = torch.randint(1, k + 1, (t,), generator=gen, device="cuda",
                            dtype=torch.int32)
+    # slots at and past a tile's count are padding, as the binning leaves
+    # them: the backward stops at the count
+    slot = torch.arange(k, device="cuda")[None, None, :]
+    slabs[3] = torch.where(slot < counts[:, None, None], slabs[3], 0.0)
     leaves = [x.clone().requires_grad_(True) for x in slabs]
     runs = torch.empty(t, dtype=torch.int32, device="cuda")
     out, acc = rp.composite_tiles_chunked(*leaves, 10, tile_counts=counts,
@@ -156,8 +248,8 @@ def test_chunked_composite_bwd_kernel_matches_plain(gen):
     assert _bwd_rel_err(got, want) <= 1e-3
     assert 0 < int((runs < 3).sum()) < t
     for g in got:
-        for i, r in enumerate(runs.tolist()):
-            assert not g[i, :, r * rp.K_CHUNK:].any()
+        for i, (r, c) in enumerate(zip(runs.tolist(), counts.tolist())):
+            assert not g[i, :, min(r * rp.K_CHUNK, c):].any()
 
 
 def test_train_step_kernels_match_plain_path(gen):

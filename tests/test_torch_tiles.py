@@ -1,5 +1,6 @@
-"""PyTorch port vs the JAX package: tile binning (exact integer equality)
-and the window gather against the Pallas slab kernel in interpret mode."""
+"""PyTorch port vs the JAX package: tile binning (exact integer equality),
+the window gather against the Pallas slab kernel in interpret mode, and the
+gather fused with the rank mask against the JAX binning's own ranks."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +12,8 @@ from qed_splatter_tpu.ops.tiles import bin_gaussians as jbin
 from qed_splatter_tpu.ops.tiles import slab_gather_unaligned
 from qed_splatter_tpu.testing import random_scene, simple_camera
 from qed_splatter_tpu_torch.ops.tiles import bin_gaussians as tbin
-from qed_splatter_tpu_torch.ops.tiles import slab_gather, slab_gather_ref
+from qed_splatter_tpu_torch.ops.tiles import (slab_gather, slab_gather_ref,
+                                              slab_ranks, slab_ranks_ref)
 
 W, H = 96, 64
 
@@ -94,3 +96,59 @@ def test_window_gather_clamps_and_checks():
         slab_gather(keys.to(torch.int32), starts, 4, -1)
     with pytest.raises(ValueError):
         slab_gather(keys, starts[None], 4, -1)
+
+
+@pytest.mark.parametrize("n,seed,sr,k,small,ovf", CASES)
+def test_fused_rank_gather_matches_binning(n, seed, sr, k, small, ovf):
+    """``slab_ranks`` on keys packed from JAX's own per-tile ranks gives
+    JAX's ``tile_ranks`` back exactly, front-most-K cap included, and
+    ``bin_gaussians`` takes it on both of its gather settings."""
+    m2d, radii, depths = _projected(n, seed, sr)
+    j = jbin(m2d, radii, depths, W, H, max_per_tile=4096,
+             small_tiles_per_gaussian=small, overflow_slots=ovf,
+             with_slab_plan=False)
+    full = np.asarray(j.tile_ranks)               # uncapped lists
+    counts = np.asarray(j.tile_counts)
+    assert counts.max() <= full.shape[1]
+    rank_bits = max((n - 1).bit_length(), 1)
+    rows = [(t << rank_bits) | full[t, :c].astype(np.int64)
+            for t, c in enumerate(counts)]
+    keys = torch.tensor(np.concatenate(rows + [np.array(
+        [len(counts) << rank_bits] * 3, np.int64)]))   # sentinel tile keys
+    starts = torch.tensor(np.concatenate([[0], np.cumsum(counts)[:-1]])
+                          .astype(np.int64))
+    got = slab_ranks(keys, starts, torch.tensor(counts), k, rank_bits)
+    want = jbin(m2d, radii, depths, W, H, max_per_tile=k,
+                small_tiles_per_gaussian=small, overflow_slots=ovf,
+                with_slab_plan=False).tile_ranks
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    args = [torch.tensor(np.asarray(x)) for x in (m2d, radii, depths)]
+    for use in (None, False):
+        t = tbin(*args, W, H, max_per_tile=k, small_tiles_per_gaussian=small,
+                 overflow_slots=ovf, use_pallas=use)
+        np.testing.assert_array_equal(t.tile_ranks.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("k", [1, 4, 7])
+def test_fused_rank_gather_edges(k):
+    """start = M, start past M, negative start, count = 0, count > K, and a
+    window that runs past M inside its count."""
+    m = 50
+    keys = (torch.arange(m, dtype=torch.int64) << 8) | (
+        torch.arange(m, dtype=torch.int64) % 200)
+    starts = torch.tensor([0, m, m + 20, -4, 10, m - 2, 30], dtype=torch.int64)
+    counts = torch.tensor([3, 5, 1, 2, 0, 9, 100], dtype=torch.int32)
+    got = slab_ranks(keys, starts, counts, k, 8)
+    assert torch.equal(got, slab_ranks_ref(keys, starts, counts, k, 8))
+    s0 = starts.clamp(0, m)
+    for t in range(len(starts)):
+        n = min(int(counts[t]), k, m - int(s0[t]))
+        assert got[t, :n].tolist() == [(int(s0[t]) + i) % 200
+                                       for i in range(n)]
+        assert (got[t, n:] == -1).all()
+    with pytest.raises(ValueError):
+        slab_ranks(keys, starts, counts.long(), k, 8)
+    with pytest.raises(ValueError):
+        slab_ranks(keys, starts, counts[:3], k, 8)
+    with pytest.raises(ValueError):
+        slab_ranks(keys, starts, counts, k, 0)

@@ -1,0 +1,235 @@
+#!/usr/bin/env python3
+"""Time tuning variants of the PyTorch port's CUDA kernels on one GPU.
+
+    python3 tools/torch_kernel_variants.py [--seed 0] [--out FILE.json]
+                                           [--one-sweep]
+
+The kernels take their tuning constants from ``-D`` flags
+(``csrc/composite_bwd.cu``: ``QED_BWD_PIX`` pixels per thread,
+``QED_BWD_GROUP`` slots per warp reduction, ``QED_BWD_FASTDIV``;
+``csrc/slab_gather.cu``: ``QED_SLAB_PAIRS`` 16-byte pairs per thread). This
+script builds each variant beside the default build, runs it on the inputs
+of one training step of ``chip_smoke.py``'s scene A (80k alive, K=256) and
+scene B (288k alive, K=2048) at 1296x840, holds it against the default
+build's result, and prints one JSON line per variant with its CUDA-event
+time.
+
+``--one-sweep`` measures instead why the backward keeps its first sweep: on
+``chip_smoke.py``'s chunked slabs with opaque stacks and on each step's own
+slabs it prints the error of the kernel and of the one-sweep form (plain
+PyTorch, R_k = S - prefix_k with S = gout . out + gacc acc from the forward
+kernel's outputs) against the plain backward and a float64 autograd, as the
+worst channel's max |err| over max |grad| and as the share of elements
+outside ``atol=5e-5, rtol=1e-3``.
+
+Needs CUDA and nvcc; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from qed_splatter_tpu_torch import cuda as qcuda  # noqa: E402
+from qed_splatter_tpu_torch.cuda import CudaKernel, ptr  # noqa: E402
+
+BWD_VARIANTS = [(2, 4, 0), (1, 4, 0), (1, 8, 0), (2, 2, 0), (2, 8, 0),
+                (4, 2, 0), (4, 4, 0), (2, 4, 1)]
+SLAB_VARIANTS = [4, 1, 2, 8]
+
+
+def bwd_defines(pix, group, fastdiv):
+    return (f"-DQED_BWD_PIX={pix}", f"-DQED_BWD_GROUP={group}",
+            f"-DQED_BWD_FASTDIV={fastdiv}")
+
+
+def slab_defines(pairs):
+    return (f"-DQED_SLAB_PAIRS={pairs}",)
+
+
+def step_inputs(n_alive, capacity, k_cap, seed):
+    """The arguments one training step gives the backward kernel and the
+    window gather, captured from the step itself."""
+    from qed_splatter_tpu_torch.configs import ModelConfig, \
+        default_optimizers
+    from qed_splatter_tpu_torch.engine.optim import GroupOptimizers
+    from qed_splatter_tpu_torch.engine.train_step import init_train_state, \
+        make_train_step
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+    from qed_splatter_tpu_torch.ops import tiles
+
+    params = chip_smoke.make_scene(n_alive, capacity, seed)
+    batch = chip_smoke.train_batch(np.random.default_rng(seed))
+    cfg = ModelConfig(camera_opt_mode="SO3xR3", max_per_tile=k_cap,
+                      background_color="random")
+    optims = GroupOptimizers(default_optimizers())
+    state = init_train_state(params, optims, num_cameras=4)
+    step = make_train_step(cfg, optims, chip_smoke.W, chip_smoke.H,
+                           has_depth=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with chip_smoke.Capture(rp, "composite_tiles_bwd") as cap_b, \
+            chip_smoke.Capture(tiles, "slab_ranks") as cap_g:
+        step.grads(state, batch, gen)
+    torch.cuda.synchronize()
+    return cap_b.args, cap_g.args
+
+
+def run_bwd(kernel, args):
+    slabs, gout, gacc = args[:4], args[4], args[5]
+    ntx, _, k_chunk, runs, counts = args[6:11]
+    t, d, k = slabs[2].shape
+    ins = [x.contiguous() for x in (*slabs, gout, gacc, runs, counts)]
+    grads = [torch.empty_like(x) for x in ins[:4]]
+    kernel(*(ptr(x) for x in ins), *(ptr(x) for x in grads), t, k, d, ntx,
+           k_chunk)
+    return grads
+
+
+def run_slab(kernel, args, ranks):
+    keys, starts, counts, k, rank_bits = args
+    t = starts.shape[0]
+    out = torch.empty((t, k), dtype=torch.int64, device="cuda")
+    kernel(ptr(keys), ptr(starts),
+           ptr(counts) if ranks else ctypes.c_void_p(None), ptr(out),
+           keys.shape[0], t, k, -1, rank_bits if ranks else 0)
+    return out
+
+
+@torch.no_grad()
+def one_sweep_rows(case, args):
+    """Errors of the kernel and of the one-sweep form on one backward call's
+    arguments (those of ``composite_tiles_bwd``; a step's own slabs still
+    require grad, hence ``no_grad``)."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    slabs, gout, gacc = args[:4], args[4], args[5]
+    ntx, ts, k_chunk, runs, counts = args[6:11]
+    out, acc = rp.composite_tiles_chunked(*slabs, ntx, tile_counts=counts)
+    total = (gout * out).sum(1) + gacc[:, 0] * acc[:, 0]
+    forms = {
+        "kernel": rp.composite_tiles_bwd(*args),
+        "one sweep, plain": rp.composite_tiles_bwd_sweeps_ref(
+            *slabs, gout, gacc, ntx, ts, k_chunk, runs, counts, total=total),
+    }
+    plain = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, ntx, ts,
+                                       k_chunk=k_chunk, chunks_run=runs)
+    f64 = [g.float() for g in rp.composite_tiles_bwd_ref(
+        *(x.double() for x in slabs), gout.double(), gacc.double(), ntx, ts,
+        k_chunk=k_chunk, chunks_run=runs)]
+    rows = []
+    for form, got in forms.items():
+        row = {"measure": "one_sweep_error", "case": case, "form": form}
+        for name, want in (("plain", plain), ("f64", f64)):
+            row[f"worst_vs_{name}"] = max(
+                chip_smoke.bwd_channel_errs(got, want))
+            outside = sum(int(((g - w).abs() > 5e-5 + 1e-3 * w.abs()).sum())
+                          for g, w in zip(got, want))
+            row[f"outside_bar_vs_{name}"] = outside / sum(
+                w.numel() for w in want)
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="")
+    ap.add_argument("--one-sweep", action="store_true",
+                    help="measure the one-sweep form's error instead")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("error: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    if not args.one_sweep:
+        jobs = [("composite_bwd", bwd_defines(*v)) for v in BWD_VARIANTS] + [
+            ("slab_gather", slab_defines(v)) for v in SLAB_VARIANTS]
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(lambda j: qcuda.build([j[0]], j[1]), jobs))
+    qcuda.build(qcuda.sources())
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    print(f"card: {smi}", flush=True)
+
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+    from qed_splatter_tpu_torch.ops import tiles
+
+    rows = []
+    if args.one_sweep:
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        ntx, nty = -(-chip_smoke.W // 16), -(-chip_smoke.H // 16)
+        t, d = ntx * nty, 4
+        slabs, counts = chip_smoke.chunked_case(gen, t, d, ntx)
+        gout = torch.randn((t, d, 256), generator=gen, device="cuda")
+        gacc = torch.randn((t, 1, 256), generator=gen, device="cuda")
+        runs = torch.empty(t, dtype=torch.int32, device="cuda")
+        rp.composite_tiles_chunked(*slabs, ntx, tile_counts=counts,
+                                   chunks_run=runs)
+        rows += one_sweep_rows(
+            f"random chunked slabs, K=2048, {t // 2 - t // 3} opaque stacks",
+            (*slabs, gout, gacc, ntx, 16, rp.K_CHUNK, runs, counts))
+        del slabs, gout, gacc
+    for label, n_alive, cap, k_cap in (("A", 80_000, 131_072, 256),
+                                       ("B", 288_000, 327_680, 2048)):
+        b_args, g_args = step_inputs(n_alive, cap, k_cap, args.seed)
+        if args.one_sweep:
+            rows += one_sweep_rows(f"train {label} step's slabs, K={k_cap}",
+                                   b_args)
+            del b_args, g_args
+            torch.cuda.empty_cache()
+            continue
+        want = rp.composite_tiles_bwd(*b_args)
+        for pix, group, fastdiv in BWD_VARIANTS:
+            kern = CudaKernel("composite_bwd", rp.COMPOSITE_BWD.symbol,
+                              rp.COMPOSITE_BWD.argtypes[:-1],
+                              bwd_defines(pix, group, fastdiv))
+            got = run_bwd(kern, b_args)
+            err = max(chip_smoke.bwd_channel_errs(got, want))
+            ms = chip_smoke.cuda_ms(lambda: run_bwd(kern, b_args), 20)
+            rows.append({"kernel": "composite_bwd", "scene": label,
+                         "pix": pix, "group": group, "fastdiv": fastdiv,
+                         "ms": ms, "err_vs_default": err})
+            print(json.dumps(rows[-1]), flush=True)
+        for ranks in (True, False):
+            ref = (tiles.slab_ranks(*g_args) if ranks else
+                   tiles.slab_gather(g_args[0], g_args[1], g_args[3], -1))
+            for pairs in SLAB_VARIANTS:
+                kern = CudaKernel("slab_gather", tiles.SLAB_GATHER.symbol,
+                                  tiles.SLAB_GATHER.argtypes[:-1],
+                                  slab_defines(pairs))
+                exact = torch.equal(run_slab(kern, g_args, ranks), ref)
+                ms = chip_smoke.cuda_ms(
+                    lambda: run_slab(kern, g_args, ranks), 100)
+                rows.append({"kernel": "slab_gather", "scene": label,
+                             "mode": "ranks" if ranks else "gather",
+                             "pairs": pairs, "ms": ms, "exact": exact})
+                print(json.dumps(rows[-1]), flush=True)
+        del b_args, g_args, want
+        torch.cuda.empty_cache()
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps({"card": smi, "rows": rows},
+                                             indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
