@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# nvcc's output (-Xptxas -v) by source name, followed by the defines if any
 BUILD_LOGS: Dict[str, str] = {}
 
 
@@ -73,7 +74,7 @@ def build(names: Sequence[str], defines: Sequence[str] = ()) -> float:
     failed = []
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
-        BUILD_LOGS[name] = log
+        BUILD_LOGS[" ".join((name, *defines))] = log
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{log}")
         else:

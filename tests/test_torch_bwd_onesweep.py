@@ -2,8 +2,9 @@
 (``composite_tiles_bwd_sweeps_ref``, what the port's autograd runs on CPU
 tensors) on the CPU.
 
-It is the direct chain rule with dalpha_k = T_k (dw_k - Q_k): T from a
-front-to-back sweep, Q_k (what lies behind slot k, composited on its own)
+It is the direct chain rule with dalpha_k = T_k (dw_k - Q_k): T from the
+forward's front-to-back pass (handed over as the last T and its slot, and
+divided back out), Q_k (what lies behind slot k, composited on its own)
 from a back-to-front sweep, and only the slots below each tile's count
 replayed. Held against JAX autodiff of the XLA ``rasterize_tiles`` on the
 same slabs and against a float64 autograd of the plain composite, at
@@ -12,11 +13,11 @@ on random slabs, under opaque stacks, with tile counts below K, and chunked
 with both skip reasons.
 
 The one-sweep form, R_k = S - prefix_k with S = gout . out + gacc acc from
-the forward's outputs, would save the first sweep. It is measured here too
-(``test_one_sweep_form_misses_bar_under_opaque_stack``): its error is
+the forward's outputs, needs no back-to-front sweep. It is measured here
+too (``test_one_sweep_form_misses_bar_under_opaque_stack``): its error is
 eps |S| whatever R_k is, times 1 / (1 - alpha_k) <= 1000, and it misses the
-bar on the slots of an opaque stack, which is why the kernel keeps two
-sweeps."""
+bar on the slots of an opaque stack, which is why the kernel sweeps both
+ways."""
 
 import numpy as np
 import pytest
@@ -99,9 +100,86 @@ def test_sweeps_under_opaque_stacks(d, k, depth):
         _assert_close(g, x, f"{name} vs float64 autograd")
 
 
+@pytest.mark.parametrize("d,k,depth,k_chunk", [(3, 64, 8, 0), (4, 96, 24, 0),
+                                               (4, 96, 12, 0),
+                                               (4, 256, 8, 64)])
+def test_sweeps_fed_by_the_forward(d, k, depth, k_chunk):
+    """The handoff: the plain forward's ``t_last`` and ``cut`` (the last
+    transmittance >= ``TRANS_MIN`` and its slot, per pixel) feed the sweeps
+    in place of their own front-to-back pass. Same gradients, exactly, and
+    inside the bar against JAX autodiff under opaque stacks, where ``cut``
+    lies below the tile's count once the stack takes T under 1e-30
+    (0.001^10: from 11 slots on)."""
+    ntx, t = 2, 6
+    slabs = _slabs(7 * d + depth, t, d, k, ntx)
+    if k_chunk:
+        slabs[3] *= 0.25
+    stacked = [0, 2, 4]
+    _saturate(slabs[0], slabs[1], slabs[3], stacked, ntx, n=depth)
+    counts = np.array([k, k - 9, k, 20, k + 5, 0], np.int32)
+    for i, c in enumerate(counts):
+        slabs[3][i, 0, c:] = 0.0
+    gout, gacc = _cotangents(depth, t, d)
+    runs = torch.empty(t, dtype=torch.int32)
+    _, _, t_last, cut = trp.composite_tiles_ref(
+        *map(_t, slabs), ntx, tile_counts=_t(counts), k_chunk=k_chunk,
+        chunks_run=runs, tail=True)
+    assert t_last.shape == (t, 1, 256) and cut.shape == (t, 1, 256)
+    assert t_last.dtype == torch.float32 and cut.dtype == torch.int32
+    n_run = trp.slots_run(t, k, k_chunk, runs, _t(counts), "cpu")
+    assert (t_last >= trp.TRANS_MIN).all() and (t_last <= 1).all()
+    assert (cut[:, 0] <= n_run[:, None]).all() and (cut >= 0).all()
+    below = cut[stacked, 0] < n_run[stacked, None]
+    if depth > 10:
+        assert below.all() and (cut[stacked] <= depth).all()
+    else:
+        # 1e-24 behind the stack: only more splats can take T under 1e-30
+        assert (cut[stacked] >= depth).all()
+    assert (cut[[1, 3, 5], 0] == n_run[[1, 3, 5], None]).all()
+    own = _sweeps(slabs, gout, gacc, ntx, counts, k_chunk, runs)
+    fed = trp.composite_tiles_bwd_sweeps_ref(
+        *map(_t, slabs), _t(gout), _t(gacc), ntx, k_chunk=k_chunk,
+        chunks_run=runs, tile_counts=_t(counts), t_last=t_last, cut=cut)
+    xla = _jax_autodiff(slabs, gout, gacc, ntx)
+    for name, f, o, j in zip(NAMES, fed, own, xla):
+        assert torch.equal(f, o), f"{name}: fed by the forward != own sweep"
+        assert torch.isfinite(f).all(), name
+        _assert_close(f, j, f"{name} vs JAX XLA autodiff")
+    with pytest.raises(ValueError, match="together"):
+        trp.composite_tiles_bwd_sweeps_ref(
+            *map(_t, slabs), _t(gout), _t(gacc), ntx, t_last=t_last)
+
+
+@pytest.mark.parametrize("counted", [False, True])
+def test_backward_wrapper_takes_the_forwards_handoff(counted):
+    """``composite_tiles_bwd`` has one path: it is fed ``t_last`` and ``cut``
+    by ``composite_tiles_fwd`` and recomputes neither. Without them it
+    raises; with them it gives the plain sweeps' gradients."""
+    d, k, ntx, t = 4, 64, 2, 4
+    slabs = _slabs(31, t, d, k, ntx)
+    counts = np.array([k, 17, 0, k + 3], np.int32) if counted else None
+    if counted:
+        for i, c in enumerate(counts):
+            slabs[3][i, 0, c:] = 0.0
+    gout, gacc = _cotangents(3, t, d)
+    runs = torch.empty(t, dtype=torch.int32)
+    tc = None if counts is None else _t(counts)
+    args = (*map(_t, slabs), _t(gout), _t(gacc), ntx, 16, 0)
+    _, _, t_last, cut = trp.composite_tiles_fwd(*map(_t, slabs), ntx, 16, tc,
+                                                0, runs, tail=True)
+    with pytest.raises(ValueError, match="t_last and cut"):
+        trp.composite_tiles_bwd(*args, runs, tc, None, None)
+    with pytest.raises(ValueError, match="t_last and cut"):
+        trp.composite_tiles_bwd(*args, runs, tc, t_last, None)
+    got = trp.composite_tiles_bwd(*args, runs, tc, t_last, cut)
+    want = _sweeps(slabs, gout, gacc, ntx, counts, 0, runs)
+    for name, g, w in zip(NAMES, got, want):
+        assert torch.equal(g, w), name
+
+
 @pytest.mark.parametrize("d,k", [(3, 64), (4, 96)])
 def test_one_sweep_form_misses_bar_under_opaque_stack(d, k):
-    """Why the kernel keeps a first sweep: on the slabs of the test above
+    """Why the kernel sweeps both ways: on the slabs of the test above
     (8-deep stacks) the one-sweep form misses the elementwise bar against
     JAX's XLA autodiff where the two-sweep form meets it. Prints both
     forms' worst |err| over max |grad| and worst absolute error."""

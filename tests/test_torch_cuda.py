@@ -70,6 +70,94 @@ def test_chunked_composite_kernel_matches_plain(gen):
     assert torch.equal(runs, runs_ref)
 
 
+def _stack(slabs, tiles_, depth, ntx):
+    """``depth`` slots of alpha 0.999 over the whole tile, in front."""
+    tid = torch.arange(slabs[0].shape[0], device="cuda")
+    slabs[0][tiles_, 0, :depth] = ((tid[tiles_] % ntx) * 16 + 8.0)[:, None]
+    slabs[0][tiles_, 1, :depth] = ((tid[tiles_] // ntx) * 16 + 8.0)[:, None]
+    slabs[1][tiles_, :, :depth] = torch.tensor(
+        [1e-6, 0.0, 1e-6], device="cuda")[None, :, None]
+    slabs[3][tiles_, 0, :depth] = 0.999
+
+
+@pytest.mark.parametrize("d,k,top", [(4, 256, 100), (3, 256, 256),
+                                     (4, 100, 30), (1, 64, 64)])
+def test_composite_kernel_stops_at_counts(gen, d, k, top):
+    """With tile counts the kernel composites only the slots below each
+    count (0 and counts above K included): it matches the plain version,
+    and NaN in the slots at and past the count is never read."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    t = 60
+    slabs = _slabs(gen, t, d, k, 10)
+    counts = torch.randint(0, top + 1, (t,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    counts[:3] = torch.tensor([0, k, k + 50], device="cuda",
+                              dtype=torch.int32)
+    out, acc, _, _ = rp.composite_tiles_fwd(*slabs, 10, 16, counts)
+    torch.cuda.synchronize()
+    ro, ra = rp.composite_tiles_ref(*slabs, 10, tile_counts=counts)
+    assert float((out - ro).abs().max()) <= TOL
+    assert float((acc - ra).abs().max()) <= TOL
+    assert not out[0].any() and not acc[0].any()
+    # what the binning leaves there (opacity 0) composites to the same
+    slot = torch.arange(k, device="cuda")[None, None, :]
+    past = slot >= counts[:, None, None]
+    padded = slabs[:3] + [torch.where(past, 0.0, slabs[3])]
+    po, pa = rp.composite_tiles(*padded, 10)
+    assert torch.equal(po, out) and torch.equal(pa, acc)
+    bad = [torch.where(past, float("nan"), x) for x in slabs[:3]]
+    no, na, _, _ = rp.composite_tiles_fwd(*bad, padded[3], 10, 16, counts)
+    assert torch.equal(no, out) and torch.equal(na, acc)
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+def test_composite_kernel_hands_over_transmittance(gen, chunked):
+    """``t_last`` and ``cut`` from the forward kernel equal the plain
+    version's slot-by-slot product bit for bit: under 24-deep opaque stacks
+    (T falls below 1e-30 inside the stack), with tile counts, chunked and
+    not; the backward fed by them equals the one that recomputes them."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    t, d, ntx = 60, 4, 10
+    k = 2 * rp.K_CHUNK + 300 if chunked else 256
+    slabs = _slabs(gen, t, d, k, ntx)
+    if chunked:
+        slabs[3] *= 0.1
+    _stack(slabs, slice(0, 20), 24, ntx)
+    counts = torch.randint(1, k + 1, (t,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    counts[:4] = torch.tensor([k, 30, 5, k + 9], device="cuda",
+                              dtype=torch.int32)
+    k_chunk = rp.K_CHUNK if chunked else 0
+    runs = torch.empty(t, dtype=torch.int32, device="cuda")
+    runs_ref = torch.empty_like(runs)
+    got = rp.composite_tiles_fwd(*slabs, ntx, 16, counts, k_chunk, runs,
+                                 tail=True)
+    want = rp.composite_tiles_ref(*slabs, ntx, 16, counts, k_chunk,
+                                  runs_ref, tail=True)
+    torch.cuda.synchronize()
+    assert torch.equal(runs, runs_ref)
+    assert float((got[0] - want[0]).abs().max()) <= TOL
+    assert torch.equal(got[2], want[2]), "t_last"
+    assert torch.equal(got[3], want[3]), "cut"
+    n_run = rp.slots_run(t, k, k_chunk, runs, counts, "cuda")
+    assert bool((got[3][0] < n_run[0]).all()) and bool(
+        (got[3][2] == 5).all())
+    assert bool((got[2] >= rp.TRANS_MIN).all())
+    gout = torch.randn((t, d, 256), generator=gen, device="cuda")
+    gacc = torch.randn((t, 1, 256), generator=gen, device="cuda")
+    fed = rp.composite_tiles_bwd(*slabs, gout, gacc, ntx, 16, k_chunk, runs,
+                                 counts, got[2], got[3])
+    with pytest.raises(ValueError):     # nothing recomputes the handoff
+        rp.composite_tiles_bwd(*slabs, gout, gacc, ntx, 16, k_chunk, runs,
+                               counts, None, None)
+    ref = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, ntx,
+                                     k_chunk=k_chunk, chunks_run=runs,
+                                     tile_counts=counts)
+    assert _bwd_rel_err(fed, ref) <= 1e-3
+
+
 def test_slab_gather_kernel_exact(gen):
     from qed_splatter_tpu_torch.ops import tiles
 
@@ -146,6 +234,16 @@ def _bwd_rel_err(got, want):
                for g, w in zip(got, want))
 
 
+def _bwd(slabs, gout, gacc, ntx, runs, counts):
+    """The unchunked backward kernel, fed by the forward kernel's handoff."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    t_last, cut = rp.composite_tiles_fwd(*slabs, ntx, 16, counts,
+                                         tail=True)[2:]
+    return rp.composite_tiles_bwd(*slabs, gout, gacc, ntx, 16, 0, runs,
+                                  counts, t_last, cut)
+
+
 @pytest.mark.parametrize("d,k", [(3, 256), (4, 256), (4, 100)])
 def test_composite_bwd_kernel_matches_plain(gen, d, k):
     from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
@@ -156,7 +254,7 @@ def test_composite_bwd_kernel_matches_plain(gen, d, k):
     gacc = torch.randn((t, 1, 256), generator=gen, device="cuda")
     runs = torch.ones(t, dtype=torch.int32, device="cuda")
     before = rp.COMPOSITE_BWD.launches
-    got = rp.composite_tiles_bwd(*slabs, gout, gacc, 10, 16, 0, runs)
+    got = _bwd(slabs, gout, gacc, 10, runs, None)
     torch.cuda.synchronize()
     assert rp.COMPOSITE_BWD.launches == before + 1
     want = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, 10)
@@ -181,7 +279,7 @@ def test_composite_bwd_kernel_stops_at_counts(gen, d, k, top):
     gout = torch.randn((t, d, 256), generator=gen, device="cuda")
     gacc = torch.randn((t, 1, 256), generator=gen, device="cuda")
     runs = torch.ones(t, dtype=torch.int32, device="cuda")
-    got = rp.composite_tiles_bwd(*slabs, gout, gacc, 10, 16, 0, runs, counts)
+    got = _bwd(slabs, gout, gacc, 10, runs, counts)
     torch.cuda.synchronize()
     want = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, 10)
     assert _bwd_rel_err(got, want) <= 1e-3
@@ -198,19 +296,12 @@ def test_composite_bwd_kernel_under_opaque_stacks(gen):
 
     t, d, k, ntx = 60, 4, 256, 10
     slabs = _slabs(gen, t, d, k, ntx)
-    tid = torch.arange(t, device="cuda")
-    for tiles_, depth in ((slice(0, 20), 8), (slice(20, 40), 24)):
-        slabs[0][tiles_, 0, :depth] = ((tid[tiles_] % ntx) * 16
-                                       + 8.0)[:, None]
-        slabs[0][tiles_, 1, :depth] = ((tid[tiles_] // ntx) * 16
-                                       + 8.0)[:, None]
-        slabs[1][tiles_, :, :depth] = torch.tensor(
-            [1e-6, 0.0, 1e-6], device="cuda")[None, :, None]
-        slabs[3][tiles_, 0, :depth] = 0.999
+    _stack(slabs, slice(0, 20), 8, ntx)
+    _stack(slabs, slice(20, 40), 24, ntx)
     gout = torch.randn((t, d, 256), generator=gen, device="cuda")
     gacc = torch.randn((t, 1, 256), generator=gen, device="cuda")
     runs = torch.ones(t, dtype=torch.int32, device="cuda")
-    got = rp.composite_tiles_bwd(*slabs, gout, gacc, ntx, 16, 0, runs)
+    got = _bwd(slabs, gout, gacc, ntx, runs, None)
     torch.cuda.synchronize()
     assert all(bool(torch.isfinite(g).all()) for g in got)
     want = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, ntx)

@@ -66,6 +66,82 @@ def test_composite_matches_pallas_interpret(d, k, needles):
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), atol=TOL)
 
 
+def _counted(d, k, counts, ntx=3):
+    """Slabs whose slots at and past each tile's count are padding as the
+    binning leaves it (opacity 0)."""
+    counts = np.asarray(counts, np.int32)
+    slabs = _slabs(13 * d + k, len(counts), d, k, ntx)
+    for i, c in enumerate(counts):
+        slabs[3][i, 0, c:] = 0.0
+    return slabs, counts
+
+
+COUNTED = [(3, 128, [0, 1, 17, 128, 40, 300]),
+           (4, 256, [256, 5, 0, 33, 255, 1000]),
+           (1, 128, [128, 0, 50, 7, 127, 129])]
+
+
+@pytest.mark.parametrize("d,k,counts", COUNTED)
+def test_composite_stops_at_tile_counts(d, k, counts):
+    """With ``tile_counts`` below K (0 and counts past K included) the plain
+    compositor runs only the slots below each count. On slabs whose padding
+    has opacity 0 that is what the JAX package computes, with and without
+    the counts."""
+    ntx = 3
+    slabs, counts = _counted(d, k, counts)
+    t = len(counts)
+    jo, ja = jrp.composite_tiles_pallas(*map(jnp.asarray, slabs), ntx, 16,
+                                        True, False)
+    co, ca = jrp.composite_tiles_chunked(
+        *map(jnp.asarray, slabs), ntx, 16, True, False,
+        tile_counts=jnp.asarray(counts))
+    runs = torch.empty(t, dtype=torch.int32)
+    to, ta = trp.composite_tiles_ref(*map(_t, slabs), ntx,
+                                     tile_counts=_t(counts), chunks_run=runs)
+    fo, fa = trp.composite_tiles_chunked(*map(_t, slabs), ntx,
+                                         tile_counts=_t(counts))
+    assert torch.equal(to, fo) and torch.equal(ta, fa)
+    assert runs.tolist() == [1] * t
+    for want_o, want_a in ((jo, ja), (co, ca)):
+        np.testing.assert_allclose(to.numpy(), np.asarray(want_o), atol=TOL)
+        np.testing.assert_allclose(ta.numpy(), np.asarray(want_a), atol=TOL)
+    empty = [i for i, c in enumerate(counts) if c == 0]
+    assert not to[empty].any() and not ta[empty].any()
+    # the counts alone decide: opacity left in the padding changes nothing
+    loud = [s.copy() for s in slabs]
+    for i, c in enumerate(counts):
+        loud[3][i, 0, c:] = 0.7
+    lo, la = trp.composite_tiles_ref(*map(_t, loud), ntx,
+                                     tile_counts=_t(counts))
+    assert torch.equal(lo, to) and torch.equal(la, ta)
+
+
+@pytest.mark.parametrize("k_chunk", [0, 64])
+def test_composite_never_reads_past_tile_counts(k_chunk):
+    """NaN in the means, conics and colours at and past each tile's count
+    (opacity 0, as the binning leaves it) never reaches the output, the
+    chunks run or what the forward hands the backward."""
+    ntx, d, k = 3, 4, 256
+    slabs, counts = _counted(d, k, [256, 5, 0, 33, 100, 1000])
+    t = len(counts)
+    bad = [s.copy() for s in slabs]
+    for i, c in enumerate(counts):
+        for x in bad[:3]:
+            x[i, :, c:] = np.nan
+    res = []
+    for these in (slabs, bad):
+        runs = torch.empty(t, dtype=torch.int32)
+        res.append((*trp.composite_tiles_ref(
+            *map(_t, these), ntx, tile_counts=_t(counts), k_chunk=k_chunk,
+            chunks_run=runs, tail=True), runs))
+    for clean, poisoned in zip(*res):
+        assert torch.isfinite(poisoned.float()).all()
+        assert torch.equal(clean, poisoned)
+    # without the counts the poison is composited
+    out, _ = trp.composite_tiles_ref(*map(_t, bad), ntx, k_chunk=k_chunk)
+    assert torch.isnan(out[1]).any()
+
+
 def test_chunked_composite_matches_jax(monkeypatch):
     """K = 512 in chunks of 128 on both sides: tiles saturated in chunk 1,
     tiles whose count ends the list early, and live tiles."""

@@ -5,19 +5,26 @@
                                            [--one-sweep]
 
 The kernels take their tuning constants from ``-D`` flags
-(``csrc/composite_bwd.cu``: ``QED_BWD_PIX`` pixels per thread,
-``QED_BWD_GROUP`` slots per warp reduction, ``QED_BWD_FASTDIV``;
+(``csrc/composite.cu``: ``QED_FWD_PIX`` pixels per thread, ``QED_FWD_BATCH``
+slots staged at a time, ``QED_FWD_CULL`` the warp cull before the exp,
+``QED_FWD_FASTEXP`` ``__expf`` for ``expf``, ``QED_FWD_UNROLL`` slots per
+trip of the depth loop; ``csrc/composite_bwd.cu``: ``QED_BWD_PIX`` pixels
+per thread, ``QED_BWD_GROUP`` slots per warp reduction, ``QED_BWD_FASTDIV``;
 ``csrc/slab_gather.cu``: ``QED_SLAB_PAIRS`` 16-byte pairs per thread). This
 script builds each variant beside the default build, runs it on the inputs
 of one training step of ``chip_smoke.py``'s scene A (80k alive, K=256) and
 scene B (288k alive, K=2048) at 1296x840, holds it against the default
 build's result, and prints one JSON line per variant with its CUDA-event
-time.
+time. The forward is timed without and with the handoff to the backward.
+Its ``__expf`` variant is measured only: its line counts the pixels that an
+alpha mask which flips against ``expf`` moves by more than rounding (1e-4)
+on the step's slabs.
 
-``--one-sweep`` measures instead why the backward keeps its first sweep: on
-``chip_smoke.py``'s chunked slabs with opaque stacks and on each step's own
-slabs it prints the error of the kernel and of the one-sweep form (plain
-PyTorch, R_k = S - prefix_k with S = gout . out + gacc acc from the forward
+``--one-sweep`` measures instead why the backward carries what lies behind
+each slot back to front and takes T from the forward, not R_k = S -
+prefix_k: on ``chip_smoke.py``'s chunked slabs with opaque stacks and on
+each step's own slabs it prints the error of the kernel and of that
+one-sweep form (plain PyTorch, S = gout . out + gacc acc from the forward
 kernel's outputs) against the plain backward and a float64 autograd, as the
 worst channel's max |err| over max |grad| and as the share of elements
 outside ``atol=5e-5, rtol=1e-3``.
@@ -45,9 +52,21 @@ import chip_smoke  # noqa: E402
 from qed_splatter_tpu_torch import cuda as qcuda  # noqa: E402
 from qed_splatter_tpu_torch.cuda import CudaKernel, ptr  # noqa: E402
 
+# (pixels per thread, batch length, cull, fastexp, unroll); the default first
+FWD_VARIANTS = [(2, 256, 1, 0, 4), (1, 256, 1, 0, 4), (4, 256, 1, 0, 4),
+                (4, 64, 1, 0, 4), (2, 64, 1, 0, 4), (2, 128, 1, 0, 4),
+                (2, 256, 1, 0, 1), (2, 256, 1, 0, 2), (2, 256, 1, 0, 8),
+                (2, 256, 0, 0, 4), (1, 256, 0, 0, 4), (4, 256, 0, 0, 4),
+                (2, 256, 1, 1, 4)]
 BWD_VARIANTS = [(2, 4, 0), (1, 4, 0), (1, 8, 0), (2, 2, 0), (2, 8, 0),
                 (4, 2, 0), (4, 4, 0), (2, 4, 1)]
 SLAB_VARIANTS = [4, 1, 2, 8]
+
+
+def fwd_defines(pix, batch, cull, fastexp, unroll):
+    return (f"-DQED_FWD_PIX={pix}", f"-DQED_FWD_BATCH={batch}",
+            f"-DQED_FWD_CULL={cull}", f"-DQED_FWD_FASTEXP={fastexp}",
+            f"-DQED_FWD_UNROLL={unroll}")
 
 
 def bwd_defines(pix, group, fastdiv):
@@ -60,8 +79,8 @@ def slab_defines(pairs):
 
 
 def step_inputs(n_alive, capacity, k_cap, seed):
-    """The arguments one training step gives the backward kernel and the
-    window gather, captured from the step itself."""
+    """The arguments one training step gives the forward kernel, the
+    backward kernel and the window gather, captured from the step itself."""
     from qed_splatter_tpu_torch.configs import ModelConfig, \
         default_optimizers
     from qed_splatter_tpu_torch.engine.optim import GroupOptimizers
@@ -80,21 +99,93 @@ def step_inputs(n_alive, capacity, k_cap, seed):
                            has_depth=True)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     with chip_smoke.Capture(rp, "composite_tiles_bwd") as cap_b, \
+            chip_smoke.Capture(rp, "composite_tiles_fwd") as cap_f, \
             chip_smoke.Capture(tiles, "slab_ranks") as cap_g:
         step.grads(state, batch, gen)
     torch.cuda.synchronize()
-    return cap_b.args, cap_g.args
+    return cap_f.args, cap_b.args, cap_g.args
+
+
+def run_fwd(kernel, args, tail=False):
+    """One launch of a build of the forward kernel on the arguments of
+    ``composite_tiles_fwd``. Returns [out, acc, chunks run] and, with
+    ``tail``, t_last and cut."""
+    slabs, ntx, _, counts, k_chunk = args[:4], *args[4:8]
+    t, d, k = slabs[2].shape
+    outs = [torch.empty((t, c, 256), device="cuda") for c in (d, 1)]
+    outs.append(torch.empty(t, dtype=torch.int32, device="cuda"))
+    null = ctypes.c_void_p(None)
+    tails = [null, null]
+    if tail:
+        outs += [torch.empty((t, 1, 256), device="cuda"),
+                 torch.empty((t, 1, 256), dtype=torch.int32, device="cuda")]
+        tails = [ptr(x) for x in outs[3:]]
+    kernel(*(ptr(x.contiguous()) for x in slabs), ptr(counts),
+           *(ptr(x) for x in outs[:3]), *tails, t, k, d, ntx, k_chunk, 1e-4)
+    return outs
 
 
 def run_bwd(kernel, args):
     slabs, gout, gacc = args[:4], args[4], args[5]
-    ntx, _, k_chunk, runs, counts = args[6:11]
+    ntx, _, k_chunk, runs, counts, t_last, cut = args[6:13]
     t, d, k = slabs[2].shape
-    ins = [x.contiguous() for x in (*slabs, gout, gacc, runs, counts)]
+    ins = [x.contiguous() for x in (*slabs, gout, gacc, runs, counts, t_last,
+                                    cut)]
     grads = [torch.empty_like(x) for x in ins[:4]]
     kernel(*(ptr(x) for x in ins), *(ptr(x) for x in grads), t, k, d, ntx,
            k_chunk)
     return grads
+
+
+def resources(build):
+    """Registers and spill bytes of the D = 4 kernels of one build (eval
+    first, then training), from nvcc's -Xptxas -v output; empty when the
+    build came from the cache."""
+    regs, spills, take = [], [], False
+    for line in qcuda.BUILD_LOGS.get(build, "").splitlines():
+        if "Compiling entry function" in line:
+            take = "ILi4E" in line
+        elif take and "spill stores" in line:
+            spills.append(int(line.split("stack frame,")[1].split()[0]))
+        elif take and "registers" in line:
+            regs.append(int(line.split("Used")[1].split()[0]))
+    return {"registers_d4": regs, "spill_store_bytes_d4": spills} if regs \
+        else {}
+
+
+def fwd_rows(label, f_args):
+    """One row per forward variant on one step's slabs."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    def kernel(defines):
+        return CudaKernel("composite", rp.COMPOSITE.symbol,
+                          rp.COMPOSITE.argtypes[:-1], defines)
+
+    rows = []
+    base = kernel(fwd_defines(*FWD_VARIANTS[0]))
+    want = run_fwd(base, f_args)
+    for variant in FWD_VARIANTS:
+        defines = fwd_defines(*variant)
+        kern = kernel(defines)
+        got = run_fwd(kern, f_args)
+        row = dict(zip(("pix", "batch", "cull", "fastexp", "unroll"),
+                       variant))
+        row = {"kernel": "composite", "scene": label, **row,
+               **resources(" ".join(("composite", *defines)))}
+        row["ms"] = chip_smoke.cuda_ms(lambda: run_fwd(kern, f_args), 20)
+        row["ms_with_handoff"] = chip_smoke.cuda_ms(
+            lambda: run_fwd(kern, f_args, tail=True), 20)
+        row["exact"] = all(torch.equal(g, w) for g, w in zip(got, want))
+        row["err_vs_default"] = max(chip_smoke.max_abs(g, w)
+                                    for g, w in zip(got[:2], want[:2]))
+        if variant[3]:      # what a flipped mask moves: far above rounding
+            off = ((got[0] - want[0]).abs().amax(1, keepdim=True) > 1e-4) | (
+                (got[1] - want[1]).abs() > 1e-4)
+            row["pixels_moved_by_a_mask"] = int(off.sum())
+        rows.append(row)
+    for row in rows:
+        print(json.dumps(row), flush=True)
+    return rows
 
 
 def run_slab(kernel, args, ranks):
@@ -157,7 +248,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     if not args.one_sweep:
-        jobs = [("composite_bwd", bwd_defines(*v)) for v in BWD_VARIANTS] + [
+        jobs = [("composite", fwd_defines(*v)) for v in FWD_VARIANTS] + [
+            ("composite_bwd", bwd_defines(*v)) for v in BWD_VARIANTS] + [
             ("slab_gather", slab_defines(v)) for v in SLAB_VARIANTS]
         with ThreadPoolExecutor(8) as pool:
             list(pool.map(lambda j: qcuda.build([j[0]], j[1]), jobs))
@@ -189,13 +281,14 @@ def main() -> int:
         del slabs, gout, gacc
     for label, n_alive, cap, k_cap in (("A", 80_000, 131_072, 256),
                                        ("B", 288_000, 327_680, 2048)):
-        b_args, g_args = step_inputs(n_alive, cap, k_cap, args.seed)
+        f_args, b_args, g_args = step_inputs(n_alive, cap, k_cap, args.seed)
         if args.one_sweep:
             rows += one_sweep_rows(f"train {label} step's slabs, K={k_cap}",
                                    b_args)
-            del b_args, g_args
+            del f_args, b_args, g_args
             torch.cuda.empty_cache()
             continue
+        rows += fwd_rows(label, f_args)
         want = rp.composite_tiles_bwd(*b_args)
         for pix, group, fastdiv in BWD_VARIANTS:
             kern = CudaKernel("composite_bwd", rp.COMPOSITE_BWD.symbol,
@@ -222,7 +315,7 @@ def main() -> int:
                              "mode": "ranks" if ranks else "gather",
                              "pairs": pairs, "ms": ms, "exact": exact})
                 print(json.dumps(rows[-1]), flush=True)
-        del b_args, g_args, want
+        del f_args, b_args, g_args, want
         torch.cuda.empty_cache()
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
