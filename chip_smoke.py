@@ -27,7 +27,18 @@ Phases (any failure exits non-zero):
 train A. ``bench.py``'s canonical training point on scene A: SO3xR3 camera
    opt, depth supervision, random background, the default optimizers,
    absgrad on; 3 warm-up and 20 timed steps of ``make_train_step``;
-train B. scene B at K = 2048: 3 steps, the chunked backward.
+train B. scene B at K = 2048: 3 steps, the chunked backward;
+trainer. the port's ``Trainer`` on a room RGB-D dataset written by
+   ``testing.write_room_dataset`` (14 frames at 1296x840, 40,000 seed
+   points): 400 steps, the first 200 at half resolution, refine every 50
+   after a warm-up of 100, an opacity reset at step 250, a capacity that
+   grows at the first refine, adaptive K from 256, a checkpoint at step 200,
+   ``eval_all`` before and after, ``finalize``; then one step's gradients on
+   the trained state against the plain path, and a resume from the step-200
+   checkpoint (its state equal to the one saved, tensor for tensor) for 20
+   more steps. It fails unless a refine added gaussians, the capacity grew,
+   all three kernels launched, at least 150 steps ran at 1296x840, every
+   loss was finite and eval PSNR rose.
 
 Each render or train phase resets the kernels' launch counts, drives the
 path, and fails unless every kernel of the path launched at least once per
@@ -44,8 +55,8 @@ steps and on the scene before any step; a pixel within rounding of a kink
 of the loss, where the two paths' gradients differ by that pixel's whole
 weight, is counted and masked out of both.
 
-Prints ``render_ms_per_frame`` / ``train_ms_per_step`` and ``kernels`` JSON
-lines, the card's name and power limit, and as the last line
+Prints ``render_ms_per_frame`` / ``train_ms_per_step`` / ``trainer`` and
+``kernels`` JSON lines, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. The gather's row in ``kernels`` is its
 rank mode, the one the main path launches; the gather mode's numbers are
 under that row's ``gather_mode`` key. Needs CUDA; imports no JAX.
@@ -730,7 +741,6 @@ def phase_scene(label, n_alive, capacity, k_cap, n_cams, reps, seed,
     return entries, frame_ms
 
 
-
 # ------------------------------------------------------------ train phases
 
 def train_batch(rng):
@@ -771,10 +781,72 @@ def loss_branch_pixels(a, b, batch):
     return differ
 
 
-def phase_train(label, n_alive, capacity, k_cap, n_warm, n_timed, seed,
-                compare_plain, profile_dir):
+def hold_grads(cfg, optims, width, height, at, a, batch, seed_bg, what, bar,
+               max_kinks=8):
+    """One step's gradients ``a`` at state ``at`` (kernel path) against the
+    plain path (``use_pallas=False``) on the same batch and background seed,
+    within ``bar`` of each tensor's max. The two frames agree to rounding,
+    but a pixel that lies within rounding of a kink of the loss (rgb == gt
+    in an L1 term, mostly) takes another branch on each path, and its whole
+    weight shows in the difference (1e-4 to 2e-3 of a gradient's max, in
+    about every second run of a trained state;
+    ``tools/torch_step_grad_diff.py`` measures it). Such pixels are counted
+    and, where there are any, masked out of the loss on both paths before
+    the bar is held. A trained state renders many pixels within rounding
+    of their ground truth, so its check allows more of them
+    (``max_kinks``)."""
     import dataclasses
 
+    from qed_splatter_tpu_torch.engine.train_step import make_train_step
+
+    cfg_plain = dataclasses.replace(cfg, use_pallas=False)
+    has_mask = "mask" in batch
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(seed_bg)
+
+    def against_plain(a, steps, batch):
+        b = steps[1].grads(at, batch, gen())
+        torch.cuda.synchronize()
+        rel = {}
+        pairs = [*((g, a.params[g], b.params[g]) for g in a.params),
+                 ("camera_opt", a.camera_opt, b.camera_opt),
+                 ("absgrad", a.absgrad, b.absgrad)]
+        for name, x, y in pairs:
+            rel[name] = float((x - y).abs().max()) / max(
+                float(y.abs().max()), 1e-30)
+        e_loss = abs(float(a.loss) - float(b.loss)) / abs(float(b.loss))
+        return rel, e_loss, b, (", ".join(
+            f"{k} {v:.2e}" for k, v in rel.items())
+            + f"; loss (relative) {e_loss:.2e}")
+
+    steps = [make_train_step(c, optims, width, height, has_depth=True,
+                             has_mask=has_mask) for c in (cfg, cfg_plain)]
+    rel, e_loss, b, text = against_plain(a, steps, batch)
+    kinks = loss_branch_pixels(a.out, b.out, batch)
+    n_kinks = int(kinks.sum())
+    print(f"  step gradients vs plain path {what} (max err / max |grad|): "
+          f"{text}; pixels on another branch of the loss: {n_kinks}")
+    check(n_kinks <= max_kinks, f"at most {max_kinks} pixels lie within "
+          "rounding of a kink of the loss")
+    if n_kinks:
+        keep = (~kinks)[..., None].float()
+        masked = dict(batch, mask=keep * batch["mask"] if has_mask else keep)
+        steps = [make_train_step(c, optims, width, height, has_depth=True,
+                                 has_mask=True) for c in (cfg, cfg_plain)]
+        a = steps[0].grads(at, masked, gen())
+        rel, e_loss, b, text = against_plain(a, steps, masked)
+        print(f"  the same with those {n_kinks} pixels masked out of the "
+              f"loss: {text}")
+        check(not bool((loss_branch_pixels(a.out, b.out, batch)
+                        & ~kinks).any()), "no other pixel changed its branch")
+    check(max(rel.values()) <= bar, f"every gradient {what} within {bar} of "
+          "its max vs the plain path")
+    check(e_loss <= TOL, f"loss within {TOL} relative of the plain path")
+
+
+def phase_train(label, n_alive, capacity, k_cap, n_warm, n_timed, seed,
+                compare_plain, profile_dir):
     from qed_splatter_tpu_torch.configs import ModelConfig, \
         default_optimizers
     from qed_splatter_tpu_torch.engine.optim import GroupOptimizers
@@ -852,61 +924,8 @@ def phase_train(label, n_alive, capacity, k_cap, n_warm, n_timed, seed,
                          torch.Generator(device="cuda").manual_seed(seed_bg))
     torch.cuda.synchronize()
     if compare_plain:
-        cfg_plain = dataclasses.replace(cfg, use_pallas=False)
-        plain = make_train_step(cfg_plain, optims, W, H, has_depth=True)
-
-        def against_plain(at, a, steps=(step, plain), batch=batch):
-            b = steps[1].grads(at, batch, torch.Generator(
-                device="cuda").manual_seed(seed_bg))
-            torch.cuda.synchronize()
-            rel = {}
-            pairs = [*((g, a.params[g], b.params[g]) for g in a.params),
-                     ("camera_opt", a.camera_opt, b.camera_opt),
-                     ("absgrad", a.absgrad, b.absgrad)]
-            for name, x, y in pairs:
-                rel[name] = float((x - y).abs().max()) / max(
-                    float(y.abs().max()), 1e-30)
-            e_loss = abs(float(a.loss) - float(b.loss)) / abs(float(b.loss))
-            return rel, e_loss, b, (", ".join(
-                f"{k} {v:.2e}" for k, v in rel.items())
-                + f"; loss (relative) {e_loss:.2e}")
-
         def hold(at, a, what, bar):
-            """One step's gradients at state ``at`` on the two paths, within
-            ``bar`` of each tensor's max. The two frames agree to rounding,
-            but a pixel that lies within rounding of a kink of the loss
-            (rgb == gt in an L1 term, mostly) takes another branch on each
-            path, and its whole weight shows in the difference (1e-4 to
-            2e-3 of a gradient's max, in about every second run of the
-            state after the steps; ``tools/torch_step_grad_diff.py``
-            measures it). Such pixels are counted and, where there are any,
-            masked out of the loss on both paths before the bar is held."""
-            rel, e_loss, b, text = against_plain(at, a)
-            kinks = loss_branch_pixels(a.out, b.out, batch)
-            n_kinks = int(kinks.sum())
-            print(f"  step gradients vs plain path {what} (max err / max "
-                  f"|grad|): {text}; pixels on another branch of the loss: "
-                  f"{n_kinks}")
-            check(n_kinks <= 8, "at most a few pixels lie within rounding of "
-                  "a kink of the loss")
-            if n_kinks:
-                masked = dict(batch, mask=(~kinks)[..., None].float())
-                steps = [make_train_step(c, optims, W, H, has_depth=True,
-                                         has_mask=True)
-                         for c in (cfg, cfg_plain)]
-                a = steps[0].grads(at, masked, torch.Generator(
-                    device="cuda").manual_seed(seed_bg))
-                rel, e_loss, b, text = against_plain(at, a, steps, masked)
-                print(f"  the same with those {n_kinks} pixels masked out of "
-                      f"the loss: {text}")
-                check(not bool((loss_branch_pixels(a.out, b.out, batch)
-                                & ~kinks).any()),
-                      "no other pixel changed its branch")
-            check(max(rel.values()) <= bar,
-                  f"every gradient {what} within {bar} of its max vs the "
-                  "plain path")
-            check(e_loss <= TOL, f"loss within {TOL} relative of the plain "
-                  "path")
+            hold_grads(cfg, optims, W, H, at, a, batch, seed_bg, what, bar)
 
         hold(state, got, "after the steps", BWD_TOL)
         # and on a state made from the seed alone, the same from run to run:
@@ -921,7 +940,7 @@ def phase_train(label, n_alive, capacity, k_cap, n_warm, n_timed, seed,
         hold(fresh, step.grads(fresh, batch, torch.Generator(
             device="cuda").manual_seed(seed_bg)), "before any step",
             FRESH_TOL)
-        del fresh, plain
+        del fresh
 
     args = cap.args
     slabs, gout, gacc = args[:4], args[4], args[5]
@@ -1005,6 +1024,263 @@ def phase_train(label, n_alive, capacity, k_cap, n_warm, n_timed, seed,
     return entries, step_ms
 
 
+# ---------------------------------------------------------- trainer phase
+
+TRAINER_FRAMES, TRAINER_POINTS = 14, 40_000
+TRAINER_STEPS, TRAINER_RESUME = 400, 20
+# the plain path's autograd keeps [tiles, 256, K] intermediates per saved
+# tensor: its gradient check runs at the trained K, capped here
+PLAIN_K_MAX = 1024
+# a trained state renders many pixels within rounding of their 8-bit ground
+# truth: up to one in 10,000 may sit on a kink of the loss
+TRAINED_MAX_KINKS = W * H // 10_000
+
+
+def trainer_config(root, out, seed):
+    """The trainer phase's run: the room at 1296x840, half resolution for
+    200 steps, refine every 50 after a warm-up of 100, an opacity reset at
+    step 250, a capacity that must grow at the first refine, K from 256
+    with adaptive K on, a checkpoint every 200 steps."""
+    from qed_splatter_tpu_torch.configs import DataConfig, ModelConfig, \
+        TrainerConfig
+
+    model = ModelConfig(num_downscales=1, resolution_schedule=200,
+                        warmup_length=100, refine_every=50,
+                        reset_alpha_every=4, init_capacity_headroom=1.05,
+                        max_per_tile=256)
+    return TrainerConfig(max_num_iterations=TRAINER_STEPS,
+                         steps_per_eval_image=100,
+                         steps_per_eval_all_images=0, steps_per_save=200,
+                         log_every=10, output_dir=out,
+                         data=DataConfig(data=root), model=model, seed=seed,
+                         steps_per_dispatch=1)
+
+
+def synced_ms(fn, into):
+    """``fn`` with each call's synchronized wall time appended to ``into``."""
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        into.append((time.perf_counter() - t1) * 1e3)
+        return out
+    return run
+
+
+def timed_steps(trainer, record):
+    """Wrap the trainer's step functions, refine (with the opacity reset)
+    and growth check: each call is timed (synchronized), steps by their
+    width, and each step's loss kept."""
+    trainer._refine = synced_ms(trainer._refine, record["refine_ms"])
+    trainer._maybe_grow = synced_ms(trainer._maybe_grow, record["grow_ms"])
+    orig = trainer._get_step_fn
+
+    def get(width, *args, **kwargs):
+        fn = orig(width, *args, **kwargs)
+        timed = synced_ms(fn, record["ms"].setdefault(width, []))
+
+        def run(state, batch, gen):
+            out = timed(state, batch, gen)
+            record["loss"].append(float(out[1]["loss"]))
+            return out
+        return run
+    trainer._get_step_fn = get
+
+
+def metrics_rows(run_dir, split):
+    with open(run_dir / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    return [r for r in rows if r["split"] == split]
+
+
+def same_state(a, b):
+    """Every tensor of two TrainStates equal (``torch.equal``), and the
+    step."""
+    from qed_splatter_tpu_torch.engine import checkpoint as ckpt
+
+    flat = []
+
+    def walk(x, y):
+        if isinstance(x, dict):
+            flat.append(x.keys() == y.keys())
+            for k in x:
+                walk(x[k], y[k])
+        elif isinstance(x, torch.Tensor):
+            flat.append(x.dtype == y.dtype and torch.equal(x, y))
+        else:
+            flat.append(x == y)
+    walk(ckpt.state_to_dict(a), ckpt.state_to_dict(b))
+    return all(flat)
+
+
+def phase_trainer(seed, profile_dir):
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    from qed_splatter_tpu_torch import testing
+    from qed_splatter_tpu_torch.data.dataset import FullImageDatamanager
+    from qed_splatter_tpu_torch.engine import checkpoint as ckpt
+    from qed_splatter_tpu_torch.engine.train_step import make_train_step
+    from qed_splatter_tpu_torch.engine.trainer import Trainer
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+    from qed_splatter_tpu_torch.ops import tiles
+
+    print(f"phase trainer: room dataset {W}x{H}, {TRAINER_FRAMES} frames, "
+          f"{TRAINER_POINTS} seed points, {TRAINER_STEPS} steps + a resume "
+          f"of {TRAINER_RESUME}", flush=True)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "room"
+        t0 = time.perf_counter()
+        testing.write_room_dataset(root, num_frames=TRAINER_FRAMES, width=W,
+                                   height=H, sparse_ply=TRAINER_POINTS,
+                                   workers=min(8, os.cpu_count() or 1))
+        t_data = time.perf_counter() - t0
+        cfg = trainer_config(str(root), str(Path(tmp) / "out"), seed)
+        t0 = time.perf_counter()
+        dm = FullImageDatamanager(cfg.data, seed=seed)
+        trainer = Trainer(cfg, datamanager=dm)
+        for i in dm.scene.train_indices:
+            dm.get_item(int(i))
+        print(f"  dataset written in {t_data:.2f} s, parsed and decoded in "
+              f"{time.perf_counter() - t0:.2f} s: {dm.num_train} train / "
+              f"{dm.num_eval} eval views, {int(trainer.state.params.num_alive())}"
+              f" gaussians in capacity {trainer.state.params.capacity}")
+        first = trainer.eval_all(0)
+        record = {"ms": {}, "loss": [], "refine_ms": [], "grow_ms": []}
+        timed_steps(trainer, record)
+
+        # --- the main path: counts from 0, the trainer's loop
+        kernels = (rp.COMPOSITE, rp.COMPOSITE_BWD, tiles.SLAB_GATHER)
+        for kern in kernels:
+            kern.reset()
+        t0 = time.perf_counter()
+        trainer.train(max_steps=TRAINER_STEPS // 2, finalize=False)
+        mid = ckpt.copy_state(trainer.state, "cpu")
+        trainer.train(max_steps=TRAINER_STEPS, finalize=False)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = {"composite": rp.COMPOSITE.launches,
+                    "composite_bwd": rp.COMPOSITE_BWD.launches,
+                    "slab_gather": tiles.SLAB_GATHER.launches}
+        variants = {"composite chunked": rp.COMPOSITE.variant_launches.get(
+            "chunked", 0), "composite_bwd chunked":
+            rp.COMPOSITE_BWD.variant_launches.get("chunked", 0),
+            "slab_gather ranks": tiles.SLAB_GATHER.variant_launches.get(
+                "ranks", 0)}
+        print(f"  {TRAINER_STEPS} steps in {t_train:.2f} s with their "
+              f"refines, evals and checkpoints; launches {launches}, "
+              f"{variants}")
+        check(all(v > 0 for v in launches.values()),
+              "every kernel launched in the trainer's run")
+        for width, ms in sorted(record["ms"].items()):
+            print(f"  bucket {width} px wide: {len(ms)} steps, median "
+                  f"{statistics.median(ms):.3f} ms per step (min "
+                  f"{min(ms):.3f}, max {max(ms):.3f})")
+        full = record["ms"].get(W, [])
+        check(len(full) >= 150, f"{len(full)} >= 150 steps at {W}x{H}")
+        check(all(math.isfinite(x) for x in record["loss"])
+              and len(record["loss"]) == TRAINER_STEPS,
+              f"all {TRAINER_STEPS} losses finite")
+        refines = metrics_rows(trainer.run_dir, "refine")
+        # one growth check and one refine per cadence, in that order
+        for r, ms_r, ms_g in zip(refines, record["refine_ms"],
+                                 record["grow_ms"]):
+            print(f"  refine at {r['step']}: alive {r['n_alive']:.0f}, "
+                  f"culled {r['n_culled']:.0f}, split {r['n_split']:.0f}, "
+                  f"dup {r['n_dup']:.0f}, added {r['n_added']:.0f}, "
+                  f"dropped {r['n_dropped']:.0f}; refine and reset "
+                  f"{ms_r:.2f} ms, growth check {ms_g:.2f} ms")
+        check(any(r["n_added"] > 0 for r in refines),
+              "a refine added gaussians")
+        grows = metrics_rows(trainer.run_dir, "grow")
+        for r in grows:
+            print(f"  growth at {r['step']}: capacity "
+                  f"{r['capacity_before']:.0f} -> {r['capacity_after']:.0f}")
+        check(len(grows) >= 1, "the capacity grew")
+        print(f"  K per bucket {trainer._k_by_d}, pair budget per bucket "
+              f"{trainer._tpg_by_d}")
+        final = trainer.eval_all(TRAINER_STEPS)
+        for label, e in (("first", first), ("last", final)):
+            print(f"  eval_all ({label}): psnr {e['rgb_psnr']:.3f}, ssim "
+                  f"{e['rgb_ssim']:.4f}, depth abs_rel "
+                  f"{e['depth_abs_rel']:.4f}, a1 {e['depth_a1']:.4f}, "
+                  f"gaussians {e['gaussian_count']}")
+        check(final["rgb_psnr"] > first["rgb_psnr"], "eval PSNR rose")
+        t0 = time.perf_counter()
+        trainer.finalize()
+        meta = ckpt.checkpoint_meta(trainer.run_dir / "ckpts")
+        print(f"  finalize {time.perf_counter() - t0:.2f} s; splat.ply "
+              f"{(trainer.run_dir / 'splat.ply').stat().st_size} bytes")
+        check(meta["tpg_by_d"] is not None and meta["k_by_d"] is not None,
+              "the final checkpoint holds k_by_d and tpg_by_d")
+
+        # --- one step's gradients on the trained state, kernel vs plain
+        item = dm.get_item(int(dm.train_indices[0]))
+        batch = trainer._prepare_batch(item, 1)[0]
+        k_check = min(trainer.cfg.max_per_tile, PLAIN_K_MAX)
+        cfg_check = dataclasses.replace(trainer.cfg, max_per_tile=k_check)
+        step = make_train_step(cfg_check, trainer.optims, W, H,
+                               has_depth=True)
+        seed_bg = seed + 23
+        got = step.grads(trainer.state, batch,
+                         torch.Generator(device="cuda").manual_seed(seed_bg))
+        hold_grads(cfg_check, trainer.optims, W, H, trainer.state, got,
+                   batch, seed_bg, f"on the trained state (K={k_check})",
+                   BWD_TOL, max_kinks=TRAINED_MAX_KINKS)
+        del got, step
+
+        # --- resume from the mid checkpoint
+        mid_dir = trainer.run_dir / "ckpts" / f"step-{TRAINER_STEPS // 2:09d}"
+        resumed = Trainer(dataclasses.replace(cfg, load_dir=str(mid_dir)),
+                          datamanager=dm, optims=trainer.optims)
+        check(same_state(resumed.state, mid), "the resumed state equals "
+              f"the one saved at step {mid.step}, tensor for tensor")
+        saved = ckpt.checkpoint_meta(mid_dir)["tpg_by_d"]
+        check(resumed._tpg_by_d == {int(d): k for d, k in saved.items()},
+              "the resume restored the pair budget table")
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                resumed.train(max_steps=mid.step + TRAINER_RESUME,
+                              finalize=False)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t1) * 1e3
+            busy_ms = sum(e.self_device_time_total for e in prof.events()
+                          if e.device_type
+                          == torch.autograd.DeviceType.CUDA) / 1e3
+            path = f"{profile_dir}/profile_trainer.txt"
+            with open(path, "w") as f:
+                f.write(prof.key_averages().table(sort_by="cuda_time_total",
+                                                  row_limit=50))
+            print(f"  profile of the {TRAINER_RESUME} resumed steps at "
+                  f"{W}x{H} written to {path}: device busy "
+                  f"{busy_ms / TRAINER_RESUME:.3f} ms per step of "
+                  f"{wall_ms / TRAINER_RESUME:.3f} ms wall under the profiler"
+                  f" (idle share {1 - busy_ms / wall_ms:.3f})")
+        else:
+            resumed.train(max_steps=mid.step + TRAINER_RESUME,
+                          finalize=False)
+        check(resumed.state.step == mid.step + TRAINER_RESUME
+              and all(bool(torch.isfinite(v).all()) for v in
+                      resumed.state.params.trainable_dict().values()),
+              f"{TRAINER_RESUME} steps after the resume, params finite")
+        del trainer, resumed, mid
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"  trainer phase wall time {wall:.2f} s")
+    return {"ms_per_step": {str(w): statistics.median(v)
+                            for w, v in record["ms"].items()},
+            "eval_psnr": [first["rgb_psnr"], final["rgb_psnr"]],
+            "refine_ms": record["refine_ms"], "grow_check_ms": record[
+                "grow_ms"], "launches": launches, "wall_s": wall}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1062,8 +1338,9 @@ def main() -> int:
         kernels += entries
         steps[label] = step_ms
 
+    trainer = phase_trainer(args.seed, args.profile)
     print(json.dumps({"render_ms_per_frame": frames,
-                      "train_ms_per_step": steps}))
+                      "train_ms_per_step": steps, "trainer": trainer}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

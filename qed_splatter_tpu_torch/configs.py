@@ -9,7 +9,15 @@ keep their names and defaults; their meaning in the port:
   plain PyTorch versions on CPU tensors). ``False`` selects the plain
   compositor over id lists (``ops.rasterize.rasterize_tiles``) and the plain
   window gather explicitly, as the JAX package selects its XLA path.
-- ``pallas_interpret``, ``grow_memory_fraction``: no effect in the port.
+- ``pallas_interpret``, ``grow_memory_fraction``: no effect in the port
+  (capacity growth reverts on a CUDA out-of-memory error instead of a
+  compile probe's memory estimate).
+- ``TrainerConfig.max_device_cache_bytes``: the budget of the trainer's
+  per-camera batches kept on the device.
+- ``TrainerConfig.journal_retry``, ``max_restarts``, ``viewer_port`` and
+  ``shard_views_by_process``: no effect; the features they steer
+  (``supervise``, the viewer, sharding) raise, as do ``steps_per_dispatch``
+  other than 0 or 1 and ``profile_dir``.
 """
 
 from __future__ import annotations

@@ -27,7 +27,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from qed_splatter_tpu_torch import resolve_device
+from qed_splatter_tpu_torch import not_ported, resolve_device
 from qed_splatter_tpu_torch.configs import ModelConfig
 from qed_splatter_tpu_torch.engine.densify import DensifyStats, \
     accumulate_stats
@@ -44,11 +44,15 @@ from qed_splatter_tpu_torch.models.gaussians import (
 from qed_splatter_tpu_torch.models.splatfacto import render, total_loss
 from qed_splatter_tpu_torch.ops.rasterize import absgrad_scatter
 
-_BILATERAL = ("use_bilateral_grid=True is not ported; see ROADMAP.md, 'Next, "
-              "in order' item 3, 'models/bilateral_grid.py'")
-_MIXED = ("mixed_precision=True (bf16 compositing) is not ported; see "
-          "ROADMAP.md, 'Next, in order' item 2, 'mixed_precision bf16 "
-          "compositing'")
+
+
+def refuse_bilateral_grid() -> NotImplementedError:
+    return not_ported("use_bilateral_grid=True", 6, "models/bilateral_grid.py")
+
+
+def refuse_mixed_precision() -> NotImplementedError:
+    return not_ported("mixed_precision=True (bf16 compositing)", 7,
+                      "mixed_precision bf16 compositing")
 
 
 @dataclasses.dataclass
@@ -69,7 +73,7 @@ def init_train_state(params: GaussianParams, optims: GroupOptimizers,
     """Zero moments, zero camera deltas and zero stats on the params'
     device."""
     if use_bilateral_grid:
-        raise NotImplementedError(_BILATERAL)
+        raise refuse_bilateral_grid()
     dev = params.means.device
     cam = torch.zeros((max(num_cameras, 1), 6), dtype=torch.float32,
                       device=dev)
@@ -133,9 +137,9 @@ class TrainStep:
                  camera_opt_on: Optional[bool] = None,
                  need_absgrad: bool = True, device="cuda"):
         if cfg.use_bilateral_grid:
-            raise NotImplementedError(_BILATERAL)
+            raise refuse_bilateral_grid()
         if cfg.mixed_precision:
-            raise NotImplementedError(_MIXED)
+            raise refuse_mixed_precision()
         self.cfg, self.optims = cfg, optims
         self.width, self.height = width, height
         self.has_depth, self.has_mask = has_depth, has_mask

@@ -155,3 +155,52 @@ def init_from_points(
         features_rest=features_rest,
         alive=alive,
     )
+
+
+def init_random(
+    num_points: int = 50_000,
+    random_scale: float = 10.0,
+    sh_degree: int = 3,
+    capacity: Optional[int] = None,
+    capacity_headroom: float = 4.0,
+    seed: int = 42,
+    init_opacity: float = 0.1,
+    device="cuda",
+) -> GaussianParams:
+    """Random-cube initialization: means uniform in (rand - 0.5) *
+    ``random_scale``, random colours, 3-NN scales. The points and colours
+    come from ``np.random.default_rng(seed)`` (they differ from the JAX
+    package's)."""
+    rng = np.random.default_rng(seed)
+    pts = ((rng.random((num_points, 3)) - 0.5) * random_scale).astype(
+        np.float32)
+    rgb = (rng.random((num_points, 3)) * 255.0).astype(np.uint8)
+    return init_from_points(pts, rgb, sh_degree=sh_degree, capacity=capacity,
+                            capacity_headroom=capacity_headroom, seed=seed,
+                            init_opacity=init_opacity, device=device)
+
+
+# the identity rotation, held by every dead slot a growth adds: a zero
+# quaternion's normalisation has a NaN gradient that poisons the backward
+UNIT_QUAT = (1.0, 0.0, 0.0, 0.0)
+
+
+def pad_rows(x: torch.Tensor, new_capacity: int, value=0) -> torch.Tensor:
+    """``x`` with rows appended up to ``new_capacity``, filled with
+    ``value`` (a scalar or one row)."""
+    pad = x.new_empty((new_capacity - x.shape[0],) + tuple(x.shape[1:]))
+    pad[...] = torch.as_tensor(value, dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad])
+
+
+def grow_capacity(params: GaussianParams,
+                  new_capacity: int) -> GaussianParams:
+    """Host-side capacity growth: every field padded with dead slots (zero
+    rows, ``alive`` False) holding the unit quaternion. New tensors; the
+    old ones are untouched."""
+    if new_capacity <= params.capacity:
+        return params
+    return GaussianParams(**{
+        f: pad_rows(getattr(params, f), new_capacity,
+                    UNIT_QUAT if f == "quats" else 0)
+        for f in FIELDS})

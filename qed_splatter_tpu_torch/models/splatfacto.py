@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from qed_splatter_tpu_torch import resolve_device
+from qed_splatter_tpu_torch import not_ported, resolve_device
 from qed_splatter_tpu_torch.configs import ModelConfig
 from qed_splatter_tpu_torch.models.gaussians import GaussianParams
 from qed_splatter_tpu_torch.ops.camera import get_viewmat
@@ -110,10 +110,8 @@ def render(
     (``cfg.use_pallas=False``). ``cfg.mixed_precision`` is not ported and
     raises."""
     if train and cfg.mixed_precision:
-        raise NotImplementedError(
-            "mixed_precision=True (bf16 compositing) is not ported; see "
-            "ROADMAP.md, 'Next, in order' item 2, 'mixed_precision bf16 "
-            "compositing'")
+        raise not_ported("mixed_precision=True (bf16 compositing)", 7,
+                         "mixed_precision bf16 compositing")
     grad_mode = contextlib.nullcontext() if train else torch.no_grad()
     with grad_mode:
         return _render(params, c2w, K, width, height, cfg, step, train,

@@ -379,3 +379,38 @@ def test_train_step_kernels_match_plain_path(gen):
         assert _bwd_rel_err([got.params[name]], [want.params[name]]) <= 1e-3
     assert _bwd_rel_err([got.camera_opt], [want.camera_opt]) <= 1e-3
     assert _bwd_rel_err([got.absgrad], [want.absgrad]) <= 1e-3
+
+
+def test_trainer_on_the_card_grows_and_launches_every_kernel(gen, tmp_path):
+    """A short trainer run on the card: the capacity grows at the first
+    refine, every kernel of the path launches, the losses stay finite."""
+    import json
+
+    from qed_splatter_tpu_torch.configs import DataConfig, ModelConfig, \
+        TrainerConfig
+    from qed_splatter_tpu_torch.engine.trainer import Trainer
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+    from qed_splatter_tpu_torch.ops import tiles
+    from qed_splatter_tpu_torch.testing import write_room_dataset
+
+    write_room_dataset(tmp_path / "room", num_frames=6, width=256,
+                       height=168, sparse_ply=3000, workers=4)
+    model = ModelConfig(num_downscales=1, resolution_schedule=15,
+                        warmup_length=10, refine_every=10,
+                        init_capacity_headroom=1.05, max_per_tile=256)
+    cfg = TrainerConfig(max_num_iterations=30, steps_per_eval_image=0,
+                        steps_per_eval_all_images=30, steps_per_save=0,
+                        log_every=5, output_dir=str(tmp_path / "out"),
+                        data=DataConfig(data=str(tmp_path / "room")),
+                        model=model, steps_per_dispatch=1)
+    trainer = Trainer(cfg)
+    cap = trainer.state.params.capacity
+    for kern in (rp.COMPOSITE, rp.COMPOSITE_BWD, tiles.SLAB_GATHER):
+        kern.reset()
+    trainer.train()
+    assert rp.COMPOSITE_BWD.launches == 30
+    assert rp.COMPOSITE.launches >= 30 and tiles.SLAB_GATHER.launches >= 30
+    assert trainer.state.params.capacity >= 2 * cap
+    rows = [json.loads(x) for x in open(trainer.run_dir / "metrics.jsonl")]
+    assert all(np.isfinite(r["loss"]) for r in rows if r["split"] == "train")
+    assert (trainer.run_dir / "splat.ply").exists()
