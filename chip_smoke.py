@@ -19,6 +19,11 @@ Phases (any failure exits non-zero):
    tiles, both skip reasons firing), each also with tile counts well below K
    (exact zeros past the count), and under 24-deep opaque stacks, where the
    transmittance falls below float32;
+2c. hold the mixed_precision (bf16 operand) kernels against their
+   plain versions on random slabs: K = 256 (two 128-slot blocks) with
+   counts, K = 333 with counts of 0, 1, K and past K, 24-deep opaque stacks,
+   and chunked at K = 2048; the forward's handoff (block offsets and sums
+   of the rounded logs, chunk transmittances) feeds the backward;
 3. scene A (the bench's canonical point): 131,072 capacity / 80,000 alive,
    SH degree 3, K = 256, 1296x840, 4 orbit cameras through
    ``render(train=False)``;
@@ -28,13 +33,28 @@ train A. ``bench.py``'s canonical training point on scene A: SO3xR3 camera
    opt, depth supervision, random background, the default optimizers,
    absgrad on; 3 warm-up and 20 timed steps of ``make_train_step``;
 train B. scene B at K = 2048: 3 steps, the chunked backward;
+train A/B mixed. scenes A and B trained with ``mixed_precision`` (3 and 2
+   steps; B takes the chunked mixed kernels): one step's gradients against
+   the float32 step's within the bf16 envelope (5e-2 of each tensor's max),
+   both mixed kernels held and timed on that step's inputs;
+bench. ``python -m qed_splatter_tpu_torch.bench``'s three points
+   (``bench.py``'s: 80k / K = 256, 288k / K = 1024, and 80k / K = 256 with
+   ``mixed_precision``), shortened to 3 + 3 steps (2 + 2 at the dense
+   point); prints the bench line;
+tools. the ported microbenchmarks ``tools/bench_gather.py`` (the window
+   gather on 4-byte keys, kernel #6) and ``tools/bench_gather3.py`` (the
+   identity copy, kernel #7), each kernel bit-equal to its plain version;
 trainer. the port's ``Trainer`` on a room RGB-D dataset written by
    ``testing.write_room_dataset`` (14 frames at 1296x840, 40,000 seed
    points): 400 steps, the first 200 at half resolution, refine every 50
    after a warm-up of 100, an opacity reset at step 250, a capacity that
    grows at the first refine, adaptive K from 256, a checkpoint at step 200,
-   ``eval_all`` before and after, ``finalize``; then one step's gradients on
-   the trained state against the plain path, and a resume from the step-200
+   ``eval_all`` before and after, ``finalize``, ``profile_dir`` (a
+   ``torch.profiler`` trace of steps 10-14 of each ``train`` call, which
+   must name both compositing kernels); then one step's gradients on the
+   trained state against the plain path, with the pixels on another branch
+   of the loss counted by kind and the alpha masks that flip between the
+   two paths counted (none may), and a resume from the step-200
    checkpoint (its state equal to the one saved, tensor for tensor) for 20
    more steps. It fails unless a refine added gaussians, the capacity grew,
    all three kernels launched, at least 150 steps ran at 1296x840, every
@@ -55,8 +75,9 @@ steps and on the scene before any step; a pixel within rounding of a kink
 of the loss, where the two paths' gradients differ by that pixel's whole
 weight, is counted and masked out of both.
 
-Prints ``render_ms_per_frame`` / ``train_ms_per_step`` / ``trainer`` and
-``kernels`` JSON lines, the card's name and power limit, and as the last line
+Prints the bench line, the tools' times, ``render_ms_per_frame`` /
+``train_ms_per_step`` / ``bench`` / ``trainer`` and ``kernels`` JSON lines,
+the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. The gather's row in ``kernels`` is its
 rank mode, the one the main path launches; the gather mode's numbers are
 under that row's ``gather_mode`` key. Needs CUDA; imports no JAX.
@@ -68,6 +89,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -86,19 +108,39 @@ BWD_TOL = 1e-3
 # a step's gradients against the plain path on the scene before any step
 # (readings: 4e-7)
 FRESH_TOL = 1e-5
+# the bf16 envelope: a mixed step's gradients against the float32 step's,
+# per tensor over its max |grad| (the JAX package holds its own mixed VJP to
+# this bar against float32)
+MIXED_TOL = 5e-2
+RP = "qed_splatter_tpu/ops/rasterize_pallas.py"
 REPLACES = {
-    "composite": ("qed_splatter_tpu/ops/rasterize_pallas.py:231 _fwd_kernel; "
-                  "qed_splatter_tpu/ops/rasterize_pallas.py:241 "
-                  "_fwd_kernel_skip"),
-    "composite_bwd": ("qed_splatter_tpu/ops/rasterize_pallas.py:297 "
-                      "_bwd_kernel; qed_splatter_tpu/ops/rasterize_pallas.py"
-                      ":268 _bwd_kernel_skip"),
+    "composite": f"{RP}:231 _fwd_kernel; {RP}:241 _fwd_kernel_skip",
+    "composite_bwd": f"{RP}:297 _bwd_kernel; {RP}:268 _bwd_kernel_skip",
+    "composite_mixed": (f"{RP}:231 _fwd_kernel with op_dtype=bfloat16 "
+                        f"(:444)"),
+    "composite_mixed_chunked": (f"{RP}:241 _fwd_kernel_skip with "
+                                f"op_dtype=bfloat16 (:575)"),
+    "composite_bwd_mixed": (f"{RP}:297 _bwd_kernel with op_dtype=bfloat16 "
+                            f"(:489)"),
+    "composite_bwd_mixed_chunked": (f"{RP}:268 _bwd_kernel_skip with "
+                                    f"op_dtype=bfloat16 (:627)"),
     "slab_gather": "qed_splatter_tpu/ops/tiles.py:67 _slab_kernel",
+    "slab_gather_i32": "tools/bench_gather.py:102 slab_kernel",
+    "copy_rows": "tools/bench_gather3.py:46 pallas_copy.kern",
 }
-SOURCES = {"composite": "qed_splatter_tpu_torch/csrc/composite.cu",
-           "composite_bwd": "qed_splatter_tpu_torch/csrc/composite_bwd.cu",
-           "slab_gather": "qed_splatter_tpu_torch/csrc/slab_gather.cu"}
+CSRC = "qed_splatter_tpu_torch/csrc"
+SOURCES = {"composite": f"{CSRC}/composite.cu",
+           "composite_bwd": f"{CSRC}/composite_bwd.cu",
+           "composite_mixed": f"{CSRC}/composite.cu",
+           "composite_mixed_chunked": f"{CSRC}/composite.cu",
+           "composite_bwd_mixed": f"{CSRC}/composite_bwd.cu",
+           "composite_bwd_mixed_chunked": f"{CSRC}/composite_bwd.cu",
+           "slab_gather": f"{CSRC}/slab_gather.cu",
+           "slab_gather_i32": f"{CSRC}/slab_gather.cu",
+           "copy_rows": f"{CSRC}/copy_rows.cu"}
 TRAIN_STEPS_WARM, TRAIN_STEPS_TIMED = 3, 20
+# the bench's three points, shortened: warm-up and timed steps of each
+BENCH_TIMED, BENCH_DENSE_TIMED = 3, 2
 
 
 def fwd_ops_per_pair(d):
@@ -116,6 +158,22 @@ def bwd_ops_per_pair(d):
     return 43 + 4 * d
 
 
+def fwd_mixed_ops_per_pair(d):
+    """f32 ops per (pixel, slot) of composite.cu's mixed kernel: the f32
+    kernel's, less T's product (2), plus the log of 1 - alpha (3), E from
+    the block's offset and integer sum (3) and its exp (1), the integer sum
+    of the rounded log (4) and the unrounded sum (1), w's rounding (2)."""
+    return fwd_ops_per_pair(d) + 12
+
+
+def bwd_mixed_ops_per_pair(d):
+    """f32 ops per (pixel, slot) of composite_bwd.cu's mixed kernel: the f32
+    kernel's, less T's division (2), plus the log (3), the integer sum taken
+    back (4), E and its exp (4), w's rounding (2), and the chunk's out and
+    acc summed in the sweep (2D)."""
+    return bwd_ops_per_pair(d) + 11 + 2 * d
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -127,32 +185,24 @@ def check(cond, msg):
 
 
 def cuda_ms(fn, reps):
-    """Mean ms per call over ``reps`` calls after one warm-up, CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    """Mean ms per call over ``reps`` calls issued from the host after one
+    warm-up, between two CUDA events (``utils/microbench.py``)."""
+    from qed_splatter_tpu_torch.utils import microbench
+
+    return microbench.device_time_per_call(fn, (), n=reps, graph=False) * 1e3
 
 
 def graph_ms(fn, reps):
-    """Mean ms per call of ``fn`` on the device alone: ``reps`` calls are
-    captured into one CUDA graph and the graph's replays are timed, so the
-    host's launch cost (which exceeds a kernel of a few microseconds) is
-    not in the number. Every call's result is kept until the end, so each
-    writes a buffer of its own and the outputs do not stay in L2."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        kept = [fn() for _ in range(reps)]
-    ms = cuda_ms(graph.replay, 5) / reps
-    del kept, graph
+    """Mean ms per call of ``fn`` on the device alone: ``reps`` calls
+    captured into one CUDA graph, whose replays are timed
+    (``utils/microbench.py``), so the host's launch cost (which exceeds a
+    kernel of a few microseconds) is not in the number. Fails where ``fn``
+    could not be captured."""
+    from qed_splatter_tpu_torch.utils import microbench
+
+    ms = microbench.device_time_per_call(fn, (), n=reps) * 1e3
+    if microbench.last_method != "graph":
+        raise SmokeFailure("a kernel could not be captured in a CUDA graph")
     return ms
 
 
@@ -429,6 +479,137 @@ def phase_bwd_parity(gen):
     check_bwd(got, want, runs, rp.K_CHUNK,
               f"composite_bwd chunked and counted T={t} K={k} D={d}", counts)
     torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------- phase 2c
+
+def check_fwd_mixed(slabs, ntx, counts, k_chunk, label, poison=False):
+    """The mixed forward kernel with its handoff against its plain version
+    on the same slabs and counts: out and acc within TOL, the chunks run
+    equal, and over the blocks and chunks each tile ran, the block sums of
+    the rounded logs equal and the offsets (float32 sums in another order)
+    and chunk transmittances within TOL relative. With ``poison`` also: NaN
+    at and past each tile's count changes no output. Returns (chunks run,
+    handoff, max abs err)."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    t, _, k = slabs[2].shape
+    runs = torch.empty(t, dtype=torch.int32, device="cuda")
+    runs_ref = torch.empty_like(runs)
+    out, acc, h = rp.composite_tiles_fwd_mixed(*slabs, ntx, 16, counts,
+                                               k_chunk, runs, tail=True)
+    ro, ra, hr = rp.composite_tiles_ref(*slabs, ntx, 16, counts, k_chunk,
+                                        runs_ref, tail=True, mixed=True)
+    err = max(max_abs(out, ro), max_abs(acc, ra))
+    n_run = rp.slots_run(t, k, k_chunk, runs, counts, "cuda")
+    nb, nc = rp.mixed_shapes(k, k_chunk)
+    kc = k_chunk if 0 < k_chunk < k else k
+    blk = (torch.arange(nb, device="cuda") * rp.MIX_BLOCK)[None] < n_run[:,
+                                                                        None]
+    chk = (torch.arange(nc, device="cuda") * kc)[None] < n_run[:, None]
+    off, off_ref = h.offsets[blk], hr.offsets[blk]
+    e_off = float(((off - off_ref).abs() / off_ref.abs().clamp(min=1.0))
+                  .max()) if off.numel() else 0.0
+    sums_equal = torch.equal(h.sums[blk], hr.sums[blk])
+    e_tr = max_abs(h.trans[chk], hr.trans[chk])
+    print(f"  {label}: max_abs_err {err:.3e}; handoff: offsets {e_off:.3e} "
+          f"relative (bit-equal: {torch.equal(off, off_ref)}), chunk "
+          f"transmittance {e_tr:.3e}")
+    check(err <= TOL, f"{label} within {TOL}")
+    check(torch.equal(runs, runs_ref), f"{label}: chunks run per tile equal "
+          "the plain")
+    check(sums_equal, f"{label}: the block sums of the rounded logs equal "
+          "the plain version's")
+    check(max(e_off, e_tr) <= TOL, f"{label}: block offsets and chunk "
+          f"transmittances within {TOL}")
+    if poison:
+        slot = torch.arange(k, device="cuda")[None, None, :]
+        past = slot >= counts[:, None, None]
+        bad = [torch.where(past, float("nan"), x) for x in slabs[:3]]
+        runs_p = torch.empty_like(runs)
+        again = rp.composite_tiles_fwd_mixed(*bad, slabs[3], ntx, 16, counts,
+                                             k_chunk, runs_p, tail=True)
+        same = (torch.equal(again[0], out) and torch.equal(again[1], acc)
+                and torch.equal(runs_p, runs)
+                and all(torch.equal(x[m], y[m]) for x, y, m in (
+                    (again[2].offsets, h.offsets, blk),
+                    (again[2].sums, h.sums, blk),
+                    (again[2].trans, h.trans, chk))))
+        check(same, f"{label}: NaN at and past each tile's count is never "
+              "read")
+    return runs, h, err
+
+
+def check_bwd_mixed(slabs, gout, gacc, ntx, k_chunk, runs, counts, handoff,
+                    label):
+    """The mixed backward kernel, fed by the mixed forward kernel's handoff,
+    against autograd of the plain mixed forward (each bf16 rounding taken
+    as the identity) within BWD_TOL of each channel's max."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    got = rp.composite_tiles_bwd_mixed(*slabs, gout, gacc, ntx, 16, k_chunk,
+                                       runs, counts, handoff)
+    want = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, ntx, 16,
+                                      k_chunk=k_chunk, chunks_run=runs,
+                                      tile_counts=counts, mixed=True)
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"{label}: gradients finite")
+    return check_bwd(got, want, runs, k_chunk, label, counts)
+
+
+def phase_mixed_parity(gen):
+    """The mixed_precision kernels against their plain versions on random
+    slabs: K = 256 (two 128-slot blocks) with counts, an odd K with counts
+    of 0, 1, K and past K, 24-deep opaque stacks (E far below float32's
+    exp range), and chunked at K = 2048."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    print("phase 2c: the mixed_precision kernels against their plain "
+          "versions", flush=True)
+    ntx, nty = -(-W // 16), -(-H // 16)
+    t = ntx * nty
+    cases = []
+    counts = torch.randint(0, 257, (t,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    cases.append(("K=256 D=4, counted", random_slabs(gen, t, 256, 4, counts,
+                                                      ntx), counts, 0, True))
+    low = torch.randint(0, 97, (t,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    low[:4] = torch.tensor([0, 1, 333, 383], device="cuda",
+                           dtype=torch.int32)
+    cases.append(("K=333 D=3, counts below 97 (and 0, 1, K, past K)",
+                  random_slabs(gen, t, 333, 3, low, ntx), low, 0, True))
+    deep = torch.zeros(t, dtype=torch.bool, device="cuda")
+    deep[::3] = True
+    full = torch.full((t,), 256, dtype=torch.int32, device="cuda")
+    cases.append(("K=256 D=4, 24-deep opaque stacks",
+                  random_slabs(gen, t, 256, 4, full, ntx, deep, depth=24),
+                  full, 0, False))
+    slabs, counts = chunked_case(gen, t, 4, ntx, 2048)
+    cases.append(("chunked K=2048 D=4, counted", slabs, counts, rp.K_CHUNK,
+                  True))
+    errs = {}
+    for label, slabs, counts, k_chunk, poison in cases:
+        d = slabs[2].shape[1]
+        runs, h, err = check_fwd_mixed(slabs, ntx, counts, k_chunk,
+                                       f"composite mixed T={t} {label}",
+                                       poison)
+        if k_chunk:
+            by_count = int(((runs < 2) & (counts <= rp.K_CHUNK)).sum())
+            by_sat = int(((runs < 2) & (counts > rp.K_CHUNK)).sum())
+            both = int((runs == 2).sum())
+            print(f"  chunked: {both} tiles composite both chunks; chunk 2 "
+                  f"skipped by {by_count} by count, {by_sat} saturated")
+            check(both > 0 and by_count > 0 and by_sat > 0,
+                  "chunk 2 composited on some tiles and both skip reasons "
+                  "fired")
+        gout = torch.randn((t, d, 256), generator=gen, device="cuda")
+        gacc = torch.randn((t, 1, 256), generator=gen, device="cuda")
+        err_b = check_bwd_mixed(slabs, gout, gacc, ntx, k_chunk, runs, counts,
+                                h, f"composite_bwd mixed T={t} {label}")
+        errs[label] = (err, err_b)
+    torch.cuda.synchronize()
+    return errs
 
 
 # ------------------------------------------------------------ phases 3, 4
@@ -762,27 +943,90 @@ def train_batch(rng):
     )
 
 
+KINKS = ("l1_sign", "clamp", "depth_sign", "alpha_zero")
+
+
 @torch.no_grad()
-def loss_branch_pixels(a, b, batch):
-    """[H, W] bool: the pixels where the loss takes another branch of one of
-    its kinks on the frames ``a`` and ``b`` that two paths rendered of one
-    state: the sign of the L1 terms (rgb - gt per channel, depth - gt), the
-    clamp of rgb to [0, 1], and depth's fallback where alpha is 0. Frames
-    that agree to rounding still fall on either side of a kink where a pixel
-    lies within rounding of it, and there the two gradients differ by that
+def loss_branch_kinds(a, b, batch):
+    """{kind: [H, W] bool}: the pixels where the loss takes another branch
+    of one of its kinks on the frames ``a`` and ``b`` that two paths
+    rendered of one state, by kind: the sign of the RGB L1 term (rgb - gt
+    per channel), the clamp of rgb to [0, 1], the sign of the depth L1 term
+    (depth - gt), and depth's fallback where alpha is 0. Frames that agree
+    to rounding still fall on either side of a kink where a pixel lies
+    within rounding of it, and there the two gradients differ by that
     pixel's whole weight."""
     rgb, depth = batch["rgb"], batch["depth"]
-    differ = (torch.sign(a.rgb - rgb) != torch.sign(b.rgb - rgb)).any(-1)
+    clamp = torch.zeros_like(a.rgb[..., 0], dtype=torch.bool)
     for edge in (0.0, 1.0):
-        differ |= ((a.rgb == edge) != (b.rgb == edge)).any(-1)
-    differ |= (torch.sign(a.depth - depth) != torch.sign(b.depth - depth))[
-        ..., 0]
-    differ |= ((a.accumulation > 0) != (b.accumulation > 0))[..., 0]
+        clamp |= ((a.rgb == edge) != (b.rgb == edge)).any(-1)
+    return {
+        "l1_sign": (torch.sign(a.rgb - rgb)
+                    != torch.sign(b.rgb - rgb)).any(-1),
+        "clamp": clamp,
+        "depth_sign": (torch.sign(a.depth - depth)
+                       != torch.sign(b.depth - depth))[..., 0],
+        "alpha_zero": ((a.accumulation > 0)
+                       != (b.accumulation > 0))[..., 0],
+    }
+
+
+def loss_branch_pixels(a, b, batch):
+    """[H, W] bool: the union of :func:`loss_branch_kinds`."""
+    kinds = loss_branch_kinds(a, b, batch)
+    differ = kinds["l1_sign"]
+    for kind in KINKS[1:]:
+        differ = differ | kinds[kind]
     return differ
 
 
+@torch.no_grad()
+def flipped_pairs(means, conics, opac, counts, num_tiles_x):
+    """The (tile, pixel, slot) pairs on which the kernel path and the plain
+    path (``use_pallas=False``) take another branch of alpha's
+    discontinuities on the same slabs: kept or not (sigma >= 0 and
+    op e^-sigma > 1/255), and capped at 0.999 or not. The kernels and their
+    plain versions take the pixel offsets in tile-local coordinates,
+    ``ops.rasterize`` in global ones, so a pair within rounding of a
+    threshold can fall on either side. Both are evaluated here in plain
+    PyTorch, op for op as the two modules do, over the slots below each
+    tile's count. Returns (int64 [n, 3], op e^-sigma tile-local [n], global
+    [n])."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+    from qed_splatter_tpu_torch.ops.rasterize import ALPHA_EPS, ALPHA_MAX
+
+    t, _, k = means.shape
+    pix = torch.arange(256, device=means.device)
+    where, a_local, a_global = [], [], []
+    group = max(1, (1 << 25) // (256 * k))
+    for s in range(0, t, group):
+        tid = torch.arange(s, min(s + group, t), device=means.device)
+        m, c, o = (x[s:s + group] for x in (means, conics, opac))
+        run = rp._slots_below(counts[s:s + group], k)
+        a_loc, keep_loc = rp._alpha_local(m, c, o, tid, num_tiles_x, 16,
+                                          run)[3:5]
+        px = ((tid % num_tiles_x) * 16).float()[:, None] + (
+            (pix % 16).float() + 0.5)[None, :]
+        py = ((tid // num_tiles_x) * 16).float()[:, None] + (
+            (pix // 16).float() + 0.5)[None, :]
+        dx = m[:, None, 0, :] - px[:, :, None]
+        dy = m[:, None, 1, :] - py[:, :, None]
+        sigma = (0.5 * (c[:, None, 0, :] * dx * dx + c[:, None, 2, :] * dy * dy)
+                 + c[:, None, 1, :] * dx * dy)
+        a_glob = o[:, None, 0, :] * torch.exp(-sigma)
+        keep_glob = (sigma >= 0.0) & (a_glob > ALPHA_EPS) & run[:, None, :]
+        differ = (keep_loc != keep_glob) | (keep_loc & (
+            (a_loc > ALPHA_MAX) != (a_glob > ALPHA_MAX)))
+        idx = differ.nonzero()
+        idx[:, 0] += s
+        where.append(idx)
+        a_local.append(a_loc[differ])
+        a_global.append(a_glob[differ])
+    return torch.cat(where), torch.cat(a_local), torch.cat(a_global)
+
+
 def hold_grads(cfg, optims, width, height, at, a, batch, seed_bg, what, bar,
-               max_kinks=8):
+               max_kinks=None):
     """One step's gradients ``a`` at state ``at`` (kernel path) against the
     plain path (``use_pallas=False``) on the same batch and background seed,
     within ``bar`` of each tensor's max. The two frames agree to rounding,
@@ -792,9 +1036,9 @@ def hold_grads(cfg, optims, width, height, at, a, batch, seed_bg, what, bar,
     about every second run of a trained state;
     ``tools/torch_step_grad_diff.py`` measures it). Such pixels are counted
     and, where there are any, masked out of the loss on both paths before
-    the bar is held. A trained state renders many pixels within rounding
-    of their ground truth, so its check allows more of them
-    (``max_kinks``)."""
+    the bar is held. ``max_kinks`` ({kind: most pixels}, see
+    :func:`loss_branch_kinds`) bounds them by kind; by default 8 pixels in
+    all. Returns the count of each kind."""
     import dataclasses
 
     from qed_splatter_tpu_torch.engine.train_step import make_train_step
@@ -823,12 +1067,20 @@ def hold_grads(cfg, optims, width, height, at, a, batch, seed_bg, what, bar,
     steps = [make_train_step(c, optims, width, height, has_depth=True,
                              has_mask=has_mask) for c in (cfg, cfg_plain)]
     rel, e_loss, b, text = against_plain(a, steps, batch)
+    kinds = loss_branch_kinds(a.out, b.out, batch)
     kinks = loss_branch_pixels(a.out, b.out, batch)
     n_kinks = int(kinks.sum())
+    by_kind = {kind: int(kinds[kind].sum()) for kind in KINKS}
     print(f"  step gradients vs plain path {what} (max err / max |grad|): "
-          f"{text}; pixels on another branch of the loss: {n_kinks}")
-    check(n_kinks <= max_kinks, f"at most {max_kinks} pixels lie within "
-          "rounding of a kink of the loss")
+          f"{text}; pixels on another branch of the loss: {n_kinks}, by "
+          f"kind {by_kind}")
+    if max_kinks is None:
+        check(n_kinks <= 8, "at most 8 pixels lie within rounding of a "
+              "kink of the loss")
+    else:
+        check(all(by_kind[kind] <= most for kind, most in max_kinks.items()),
+              f"pixels within rounding of a kink of the loss, by kind, at "
+              f"most {max_kinks}")
     if n_kinks:
         keep = (~kinks)[..., None].float()
         masked = dict(batch, mask=keep * batch["mask"] if has_mask else keep)
@@ -843,6 +1095,7 @@ def hold_grads(cfg, optims, width, height, at, a, batch, seed_bg, what, bar,
     check(max(rel.values()) <= bar, f"every gradient {what} within {bar} of "
           "its max vs the plain path")
     check(e_loss <= TOL, f"loss within {TOL} relative of the plain path")
+    return by_kind
 
 
 def phase_train(label, n_alive, capacity, k_cap, n_warm, n_timed, seed,
@@ -1024,6 +1277,283 @@ def phase_train(label, n_alive, capacity, k_cap, n_warm, n_timed, seed,
     return entries, step_ms
 
 
+def phase_train_mixed(label, n_alive, capacity, k_cap, n_steps, seed):
+    """``mixed_precision`` training on a scene: ``n_steps`` steps of
+    ``make_train_step`` through the bf16 operand kernels (the main path of
+    the mixed kernels; chunked at K > K_CHUNK), one step's gradients against
+    the float32 step's on the same state within the bf16 envelope
+    (MIXED_TOL), and both mixed kernels held against their plain versions
+    and timed on that step's own inputs."""
+    import dataclasses
+
+    from qed_splatter_tpu_torch.configs import ModelConfig, \
+        default_optimizers
+    from qed_splatter_tpu_torch.engine.optim import GroupOptimizers
+    from qed_splatter_tpu_torch.engine.train_step import init_train_state, \
+        make_train_step
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+    from qed_splatter_tpu_torch.ops import tiles
+
+    print(f"phase train {label} mixed: {n_alive} alive / {capacity} "
+          f"capacity, K={k_cap}, {W}x{H}, mixed_precision, {n_steps} steps",
+          flush=True)
+    params = make_scene(n_alive, capacity, seed)
+    batch = train_batch(np.random.default_rng(seed))
+    cfg = ModelConfig(camera_opt_mode="SO3xR3", max_per_tile=k_cap,
+                      background_color="random", mixed_precision=True)
+    optims = GroupOptimizers(default_optimizers())
+    state = init_train_state(params, optims, num_cameras=4)
+    step = make_train_step(cfg, optims, W, H, has_depth=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    chunked = k_cap > rp.K_CHUNK
+
+    # --- the main path: counts from 0, every step through make_train_step
+    kernels = {"composite": rp.COMPOSITE, "composite_bwd": rp.COMPOSITE_BWD,
+               "composite_mixed": rp.COMPOSITE_MIXED,
+               "composite_bwd_mixed": rp.COMPOSITE_BWD_MIXED,
+               "slab_gather": tiles.SLAB_GATHER}
+    for kern in kernels.values():
+        kern.reset()
+    times, losses = [], []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(metrics["loss"]))
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    variants = {name: kernels[name].variant_launches.get("chunked", 0)
+                for name in ("composite_mixed", "composite_bwd_mixed")}
+    print(f"  launches {launches}, chunked {variants}; loss per step "
+          f"{', '.join(f'{x:.5f}' for x in losses)}; step median "
+          f"{statistics.median(times):.3f} ms")
+    check(launches["composite_mixed"] == n_steps
+          and launches["composite_bwd_mixed"] == n_steps
+          and launches["slab_gather"] == n_steps,
+          "one mixed composite, one mixed composite_bwd and one slab_gather "
+          "per step")
+    check(launches["composite"] == 0 and launches["composite_bwd"] == 0,
+          "the mixed step launched no float32 compositing kernel")
+    if chunked:
+        check(all(v == n_steps for v in variants.values()),
+              "the mixed kernels took their chunked path")
+    check(all(math.isfinite(x) for x in losses)
+          and float(metrics["nonfinite_grads"]) == 0.0,
+          "loss finite and nonfinite_grads == 0 on every step")
+
+    # --- one step's gradients against the float32 step's, on the scene
+    #     before any step with its scales spread (isotropic scales give the
+    #     rotations no gradient), the same state from run to run
+    seed_bg = seed + 29
+
+    def bg():
+        return torch.Generator(device="cuda").manual_seed(seed_bg)
+
+    del state
+    fresh = make_scene(n_alive, capacity, seed)
+    spread = np.random.default_rng(seed + 1).normal(
+        0, 0.4, tuple(fresh.scales.shape)).astype(np.float32)
+    state = init_train_state(fresh.replace(
+        scales=fresh.scales + torch.as_tensor(spread, device="cuda")),
+        optims, num_cameras=4)
+    with Capture(rp, "composite_tiles_fwd_mixed") as cap_f, \
+            Capture(rp, "composite_tiles_bwd_mixed") as cap_b:
+        gm = step.grads(state, batch, bg())
+    step32 = make_train_step(dataclasses.replace(cfg, mixed_precision=False),
+                             optims, W, H, has_depth=True)
+    g32 = step32.grads(state, batch, bg())
+    torch.cuda.synchronize()
+    pairs = [*((g, gm.params[g], g32.params[g]) for g in gm.params),
+             ("camera_opt", gm.camera_opt, g32.camera_opt),
+             ("absgrad", gm.absgrad, g32.absgrad)]
+    rel = {name: float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                  1e-30)
+           for name, x, y in pairs}
+    e_loss = abs(float(gm.loss) - float(g32.loss)) / abs(float(g32.loss))
+    e_rgb = max_abs(gm.out.rgb.detach(), g32.out.rgb.detach())
+    print(f"  mixed step vs float32 step (max err / max |grad|): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f"; loss (relative) {e_loss:.2e}; rgb max abs {e_rgb:.2e}")
+    check(max(rel.values()) <= MIXED_TOL, f"every gradient within "
+          f"{MIXED_TOL} of its max of the float32 step's (the bf16 envelope)")
+    check(e_loss <= 1e-3, "loss within 1e-3 relative of the float32 step's")
+    check(e_rgb > 0.0, "the bf16 roundings show in the frame")
+    del g32, step32
+
+    # --- both kernels on the step's own inputs
+    fargs = cap_f.args
+    slabs = [x.detach() for x in fargs[:4]]
+    ntx, ts, counts, k_chunk = fargs[4:8]
+    t, d, k = slabs[2].shape
+    runs, h, err_f = check_fwd_mixed(slabs, ntx, counts, k_chunk,
+                                     f"composite mixed on the step's slabs "
+                                     f"(T={t}, K={k})")
+    bargs = list(cap_b.args)
+    gout, gacc = bargs[4], bargs[5]
+    check(torch.equal(bargs[9], runs) and bargs[10] is not None,
+          "the step's backward replayed the forward's chunks, with the "
+          "tile counts")
+    err_b = check_bwd_mixed(slabs, gout, gacc, ntx, k_chunk, runs, counts,
+                            bargs[11], f"composite_bwd mixed on the step's "
+                            f"slabs (T={t}, K={k})")
+    ms_f = graph_ms(lambda: rp.composite_tiles_fwd_mixed(
+        *slabs, ntx, ts, counts, k_chunk, None, True), 20)
+    plain_f = cuda_ms(lambda: rp.composite_tiles_ref(
+        *slabs, ntx, ts, counts, k_chunk, tail=True, mixed=True), 1)
+    ms_b = cuda_ms(lambda: rp.composite_tiles_bwd_mixed(
+        *slabs, gout, gacc, ntx, ts, k_chunk, runs, counts, h), 20)
+    plain_b = cuda_ms(lambda: rp.composite_tiles_bwd_ref(
+        *slabs, gout, gacc, ntx, ts, k_chunk=k_chunk, chunks_run=runs,
+        tile_counts=counts, mixed=True), 1)
+    needed = needed_slots(counts, runs, k, k_chunk)
+    nb, nc = rp.mixed_shapes(k, k_chunk)
+    slab_bytes = sum(x.numel() for x in slabs) * 4
+    hand_bytes = t * 256 * (2 * nb + nc) * 4
+    f_bytes = slab_bytes + counts.numel() * 4 + t * 256 * (d + 1) * 4 \
+        + hand_bytes
+    f_ops = 256 * needed * fwd_mixed_ops_per_pair(d)
+    b_bytes = 2 * slab_bytes + t * 256 * (d + 1) * 4 + hand_bytes \
+        + (runs.numel() + counts.numel()) * 4
+    b_ops = 256 * needed * bwd_mixed_ops_per_pair(d)
+    bounds = {}
+    for name, ms, plain, nbytes, ops in (
+            ("composite_mixed", ms_f, plain_f, f_bytes, f_ops),
+            ("composite_bwd_mixed", ms_b, plain_b, b_bytes, b_ops)):
+        bb = nbytes / PEAK_BYTES_PER_S * 1e3
+        bo = ops / PEAK_F32_PER_S * 1e3
+        bounds[name] = (bb, bo)
+        print(f"  {name} {ms:.4f} ms (plain {plain:.3f} ms), bound "
+              f"{max(bb, bo):.4f} ms ({bo:.4f} by operations, {bb:.4f} by "
+              f"bytes), {ms / max(bb, bo):.2f}x its bound; {needed} of "
+              f"{t * k} slots needed")
+    suffix = "_chunked" if chunked else ""
+    entries = [
+        entry(f"composite_mixed{suffix}", f"train {label}, K={k_cap}",
+              launches["composite_mixed"], err_f, ms_f, plain_f, None,
+              *bounds["composite_mixed"]),
+        entry(f"composite_bwd_mixed{suffix}", f"train {label}, K={k_cap}",
+              launches["composite_bwd_mixed"], err_b, ms_b, plain_b, None,
+              *bounds["composite_bwd_mixed"]),
+    ]
+    entries[0]["vs_float32_step"] = {"grad_rel_max": max(rel.values()),
+                                     "loss_rel": e_loss}
+    del state, gm, params, fresh, slabs, fargs, bargs, gout, gacc, h
+    torch.cuda.empty_cache()
+    return entries, statistics.median(times)
+
+
+# ------------------------------------------------------------ bench phase
+
+def phase_bench(seed):
+    """``qed_splatter_tpu_torch.bench``'s three points (``bench.py``'s),
+    shortened to BENCH_TIMED warm-up and timed steps (BENCH_DENSE_TIMED at
+    the dense point): the bench line, and the mixed kernels' launches on
+    the bench's mixed point."""
+    from qed_splatter_tpu_torch import bench
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    print(f"phase bench: bench.py's three points, {BENCH_TIMED} warm-up + "
+          f"{BENCH_TIMED} timed steps ({BENCH_DENSE_TIMED} at the dense "
+          "point)", flush=True)
+    mixed = (rp.COMPOSITE_MIXED, rp.COMPOSITE_BWD_MIXED)
+    for kern in mixed:
+        kern.reset()
+    t0 = time.perf_counter()
+    line = bench.run("cuda", seed, n_timed=BENCH_TIMED,
+                     dense_n_timed=BENCH_DENSE_TIMED)
+    wall = time.perf_counter() - t0
+    print(json.dumps(line))
+    steps = 2 * BENCH_TIMED + 1
+    print(f"  {wall:.2f} s; mixed launches {[k.launches for k in mixed]} "
+          f"(the mixed point's {steps} steps)")
+    check(set(line) == {"metric", "value", "unit", "vs_baseline", "extra"}
+          and line["value"] > 0 and line["extra"]["loss_finite"],
+          "the bench line has bench.py's keys, a rate and finite losses")
+    check(all(k.launches == steps for k in mixed), "the bench's mixed point "
+          "went through the mixed kernels")
+    return line
+
+
+# ------------------------------------------------------------ tools phase
+
+def phase_tools():
+    """The two ported microbenchmarks (``qed_splatter_tpu_torch.tools``),
+    the main path of kernels #6 (the window gather on 4-byte keys) and #7
+    (the identity copy): each tool's run with the counts from 0, then each
+    kernel held bit-equal against its plain version and the library call at
+    the tool's shapes; times are the tool's own."""
+    from qed_splatter_tpu_torch.ops import copy_rows as cr
+    from qed_splatter_tpu_torch.ops import tiles
+    from qed_splatter_tpu_torch.tools import bench_gather, bench_gather3
+
+    print("phase tools: tools/bench_gather.py and bench_gather3.py ported",
+          flush=True)
+    tiles.SLAB_GATHER32.reset()
+    cr.COPY_ROWS.reset()
+    t6 = bench_gather.run("cuda", log=lambda x: print(f"  {x}", flush=True))
+    l6 = tiles.SLAB_GATHER32.launches
+    t7 = bench_gather3.run("cuda", log=lambda x: print(f"  {x}", flush=True))
+    l7 = cr.COPY_ROWS.launches
+    print(json.dumps({"bench_gather": t6, "bench_gather3": t7}))
+    print(f"  launches: slab_gather i32 {l6}, copy_rows {l7}")
+    check(l6 > 0 and l7 > 0, "each tool launched its kernel")
+    check(not any(name.endswith(":eager") for name in (*t6, *t7)),
+          "every formulation was timed by CUDA graph replays")
+
+    pairs, starts = bench_gather.slab_case("cuda")
+    k = bench_gather.K_CAP
+    got = tiles.slab_gather(pairs, starts, k, 0)
+    check(torch.equal(got, tiles.slab_gather_ref(pairs, starts, k, 0))
+          and torch.equal(got, bench_gather.slab_library(pairs, starts, k)),
+          f"slab_gather on 4-byte keys (T={starts.numel()}, K={k}, "
+          f"M={pairs.numel()}) bit-equal to its plain version and "
+          "index_select on an unfold view")
+    # bytes: the keys the windows cover, once; the starts; the windows out
+    m = pairs.numel()
+    covered = torch.zeros(m + 1, dtype=torch.int32, device="cuda")
+    st = starts.clamp(0, m)
+    covered.index_add_(0, st, torch.ones_like(st, dtype=torch.int32))
+    covered.index_add_(0, (st + k).clamp(max=m),
+                       -torch.ones_like(st, dtype=torch.int32))
+    read = int((covered.cumsum(0)[:m] > 0).sum())
+    b6 = (read * 4 + starts.numel() * 8 + starts.numel() * k * 4) \
+        / PEAK_BYTES_PER_S * 1e3
+    entries = [entry("slab_gather_i32", "tools/bench_gather, slab_pallas_dma",
+                     l6, 0.0, t6["slab_pallas_dma"],
+                     t6["slab_pallas_dma_plain"],
+                     t6["slab_pallas_dma_library"], b6, 0.0)]
+    print(f"  slab_gather i32 {t6['slab_pallas_dma']:.4f} ms (plain "
+          f"{t6['slab_pallas_dma_plain']:.4f}, library "
+          f"{t6['slab_pallas_dma_library']:.4f}), bound {b6:.4f} ms by "
+          f"bytes ({read} of {m} keys covered)")
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = {}
+    for label, n in (("327k", bench_gather3.N_TAB),
+                     ("4p4M", bench_gather3.M_IDX)):
+        x = torch.rand((n, bench_gather3.C), generator=gen, device="cuda")
+        y = cr.copy_rows(x)
+        check(torch.equal(y, cr.copy_rows_ref(x)) and y.data_ptr()
+              != x.data_ptr(), f"copy_rows [{n}, {bench_gather3.C}] "
+              "bit-equal to its plain version")
+        b7 = 2 * x.numel() * 4 / PEAK_BYTES_PER_S * 1e3
+        rows[label] = (t7[f"copy_{label}"], t7[f"copy_{label}_plain"],
+                       t7[f"copy_{label}_library"], b7)
+        print(f"  copy_rows {label}: {rows[label][0]:.4f} ms (plain "
+              f"{rows[label][1]:.4f}, Tensor.copy_ {rows[label][2]:.4f}), "
+              f"bound {b7:.4f} ms by bytes")
+        del x, y
+    ms, plain, lib, b7 = rows["4p4M"]
+    entries.append(entry("copy_rows", "tools/bench_gather3, [4396032, 10]",
+                         l7, 0.0, ms, plain, lib, b7, 0.0))
+    ms, plain, lib, b7 = rows["327k"]
+    entries[-1]["at_327680_rows"] = {"ms": ms, "plain_ms": plain,
+                                     "library_ms": lib, "bound_ms": b7}
+    torch.cuda.empty_cache()
+    return entries
+
+
 # ---------------------------------------------------------- trainer phase
 
 TRAINER_FRAMES, TRAINER_POINTS = 14, 40_000
@@ -1031,16 +1561,23 @@ TRAINER_STEPS, TRAINER_RESUME = 400, 20
 # the plain path's autograd keeps [tiles, 256, K] intermediates per saved
 # tensor: its gradient check runs at the trained K, capped here
 PLAIN_K_MAX = 1024
-# a trained state renders many pixels within rounding of their 8-bit ground
-# truth: up to one in 10,000 may sit on a kink of the loss
-TRAINED_MAX_KINKS = W * H // 10_000
+# pixels of the trained state on another branch of a kink of the loss, by
+# kind (loss_branch_kinds). A trained state renders many pixels within
+# rounding of their ground truth, in colour (8-bit) and in depth (mm), so
+# either L1 term's sign may differ on up to one pixel in 10,000 (the readings
+# were 29 and 25 of 1,088,640 with no alpha mask flipping between the
+# paths); alpha > 0 differs only where a mask flips, which none may; the
+# clamp at 0/1 read 0.
+TRAINED_MAX_KINKS = {"l1_sign": W * H // 10_000, "clamp": 8,
+                     "depth_sign": W * H // 10_000, "alpha_zero": 0}
 
 
-def trainer_config(root, out, seed):
+def trainer_config(root, out, seed, profile_dir=None):
     """The trainer phase's run: the room at 1296x840, half resolution for
     200 steps, refine every 50 after a warm-up of 100, an opacity reset at
     step 250, a capacity that must grow at the first refine, K from 256
-    with adaptive K on, a checkpoint every 200 steps."""
+    with adaptive K on, a checkpoint every 200 steps, and ``profile_dir``'s
+    trace of steps 10-14 of each ``train`` call."""
     from qed_splatter_tpu_torch.configs import DataConfig, ModelConfig, \
         TrainerConfig
 
@@ -1053,7 +1590,7 @@ def trainer_config(root, out, seed):
                          steps_per_eval_all_images=0, steps_per_save=200,
                          log_every=10, output_dir=out,
                          data=DataConfig(data=root), model=model, seed=seed,
-                         steps_per_dispatch=1)
+                         steps_per_dispatch=1, profile_dir=profile_dir)
 
 
 def synced_ms(fn, into):
@@ -1138,7 +1675,9 @@ def phase_trainer(seed, profile_dir):
                                    height=H, sparse_ply=TRAINER_POINTS,
                                    workers=min(8, os.cpu_count() or 1))
         t_data = time.perf_counter() - t0
-        cfg = trainer_config(str(root), str(Path(tmp) / "out"), seed)
+        trace_dir = Path(tmp) / "trace"
+        cfg = trainer_config(str(root), str(Path(tmp) / "out"), seed,
+                             str(trace_dir))
         t0 = time.perf_counter()
         dm = FullImageDatamanager(cfg.data, seed=seed)
         trainer = Trainer(cfg, datamanager=dm)
@@ -1175,6 +1714,23 @@ def phase_trainer(seed, profile_dir):
               f"{variants}")
         check(all(v > 0 for v in launches.values()),
               "every kernel launched in the trainer's run")
+        # profile_dir: a trace of steps 10-14 of each train call
+        for at in (10, TRAINER_STEPS // 2 + 10):
+            name = f"steps_{at}-{at + 4}"
+            events = json.loads((trace_dir / f"trace_{name}.json")
+                                .read_text())["traceEvents"]
+            # "void (anonymous namespace)::composite_kernel<4, true>(...)"
+            kern = {m.group(0) for e in events if e.get("cat") == "kernel"
+                    for m in [re.search(r"composite\w*_kernel<[^>]*>",
+                                        e["name"])] if m}
+            table = (trace_dir / f"key_averages_{name}.txt").read_text()
+            print(f"  profile_dir trace of {name}: {len(events)} events, "
+                  f"compositing kernels {sorted(kern)}; key_averages "
+                  f"{len(table.splitlines())} lines")
+            check(any(k.startswith("composite_kernel") for k in kern)
+                  and any(k.startswith("composite_bwd_kernel")
+                          for k in kern),
+                  f"the trace of {name} names composite and composite_bwd")
         for width, ms in sorted(record["ms"].items()):
             print(f"  bucket {width} px wide: {len(ms)} steps, median "
                   f"{statistics.median(ms):.3f} ms per step (min "
@@ -1225,16 +1781,35 @@ def phase_trainer(seed, profile_dir):
         step = make_train_step(cfg_check, trainer.optims, W, H,
                                has_depth=True)
         seed_bg = seed + 23
-        got = step.grads(trainer.state, batch,
-                         torch.Generator(device="cuda").manual_seed(seed_bg))
-        hold_grads(cfg_check, trainer.optims, W, H, trainer.state, got,
-                   batch, seed_bg, f"on the trained state (K={k_check})",
-                   BWD_TOL, max_kinks=TRAINED_MAX_KINKS)
-        del got, step
+        with Capture(rp, "composite_tiles_chunked") as cap_c:
+            got = step.grads(trainer.state, batch, torch.Generator(
+                device="cuda").manual_seed(seed_bg))
+        # a kink pixel is either an alpha mask that flips between the paths
+        # (a kernel/plain divergence) or a pixel within rounding of a kink
+        # of the loss: count the flips first
+        c_args = cap_c.args
+        flips, a_loc, a_glob = flipped_pairs(
+            c_args[0].detach(), c_args[1].detach(), c_args[3].detach(),
+            cap_c.kwargs["tile_counts"], c_args[4])
+        print(f"  (tile, pixel, slot) pairs of the trained state whose alpha "
+              f"mask flips between the kernel path and the plain path: "
+              f"{flips.shape[0]}"
+              + "".join(f"; {p} op e^-sigma * 255 {x * 255:.7f} (tile-local)"
+                        f" / {y * 255:.7f} (global)" for p, x, y in zip(
+                            flips.tolist()[:4], a_loc.tolist(),
+                            a_glob.tolist())))
+        kinks = hold_grads(cfg_check, trainer.optims, W, H, trainer.state,
+                           got, batch, seed_bg,
+                           f"on the trained state (K={k_check})", BWD_TOL,
+                           max_kinks=TRAINED_MAX_KINKS)
+        check(flips.shape[0] == 0, "no alpha mask flips between the kernel "
+              "path and the plain path on the trained state")
+        del got, step, c_args, cap_c
 
         # --- resume from the mid checkpoint
         mid_dir = trainer.run_dir / "ckpts" / f"step-{TRAINER_STEPS // 2:09d}"
-        resumed = Trainer(dataclasses.replace(cfg, load_dir=str(mid_dir)),
+        resumed = Trainer(dataclasses.replace(cfg, load_dir=str(mid_dir),
+                                              profile_dir=None),
                           datamanager=dm, optims=trainer.optims)
         check(same_state(resumed.state, mid), "the resumed state equals "
               f"the one saved at step {mid.step}, tensor for tensor")
@@ -1278,7 +1853,8 @@ def phase_trainer(seed, profile_dir):
                             for w, v in record["ms"].items()},
             "eval_psnr": [first["rgb_psnr"], final["rgb_psnr"]],
             "refine_ms": record["refine_ms"], "grow_check_ms": record[
-                "grow_ms"], "launches": launches, "wall_s": wall}
+                "grow_ms"], "launches": launches, "wall_s": wall,
+            "trained_state_kinks": kinks, "alpha_mask_flips": 0}
 
 
 def main() -> int:
@@ -1318,6 +1894,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     phase_kernel_parity(gen)
     phase_bwd_parity(gen)
+    phase_mixed_parity(gen)
     kernels, frames, steps = [], {}, {}
     for label, n_alive, cap, k_cap, n_cams, reps in (
         ("A", 80_000, 131_072, 256, 4, 2),
@@ -1337,10 +1914,21 @@ def main() -> int:
                                           args.profile)
         kernels += entries
         steps[label] = step_ms
+    for label, n_alive, cap, k_cap, n_steps in (
+        ("A", 80_000, 131_072, 256, 3),
+        ("B", 288_000, 327_680, 2048, 2),
+    ):
+        entries, step_ms = phase_train_mixed(label, n_alive, cap, k_cap,
+                                             n_steps, args.seed)
+        kernels += entries
+        steps[f"{label} mixed"] = step_ms
+    bench_line = phase_bench(args.seed)
+    kernels += phase_tools()
 
     trainer = phase_trainer(args.seed, args.profile)
     print(json.dumps({"render_ms_per_frame": frames,
-                      "train_ms_per_step": steps, "trainer": trainer}))
+                      "train_ms_per_step": steps, "bench": bench_line,
+                      "trainer": trainer}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

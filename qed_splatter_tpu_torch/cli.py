@@ -6,8 +6,10 @@
 Every field of the config dataclasses is a flag, as in the JAX package's
 ``qed train``: nested fields take dotted prefixes (``--model.sh-degree``),
 booleans ``--x`` / ``--no-x``, Literal types become choices.
-``--device`` (default ``cuda``) picks where the trainer runs. The other
-subcommands of ``qed`` are not ported and raise, naming their ROADMAP item.
+``--device`` (default ``cuda``) picks where the trainer runs; on the GPU
+the command holds the device lock (``utils/chiplock.py``) for its life. The
+other subcommands of ``qed`` are not ported and raise, naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -107,11 +109,14 @@ def build_trainer_config(argv):
 
 def cmd_train(argv) -> int:
     from qed_splatter_tpu_torch.engine.trainer import Trainer
+    from qed_splatter_tpu_torch.utils.chiplock import acquire_chip_lock
 
     cfg, device = build_trainer_config(argv)
     if not cfg.data.data:
         print("error: --data PATH is required", file=sys.stderr)
         return 2
+    # one client on the GPU at a time (a CPU run takes no lock)
+    acquire_chip_lock("qed train", device=device)
     Trainer(cfg, device=device).train()
     return 0
 

@@ -16,8 +16,8 @@ keep their names and defaults; their meaning in the port:
   per-camera batches kept on the device.
 - ``TrainerConfig.journal_retry``, ``max_restarts``, ``viewer_port`` and
   ``shard_views_by_process``: no effect; the features they steer
-  (``supervise``, the viewer, sharding) raise, as do ``steps_per_dispatch``
-  other than 0 or 1 and ``profile_dir``.
+  (``supervise``, the viewer, sharding) raise, as does ``steps_per_dispatch``
+  other than 0 or 1.
 """
 
 from __future__ import annotations
@@ -111,7 +111,7 @@ class ModelConfig:
     # run the Pallas kernels in interpret mode off-TPU (tests / multichip
     # dryrun exercise the exact hot-path code a TPU pod would run)
     pallas_interpret: bool = False
-    # bf16 MXU operands in the compositing kernels during training (synced
+    # bf16 operands in the compositing kernels during training (synced
     # from TrainerConfig.mixed_precision, reference config.py:32); eval
     # renders stay f32
     mixed_precision: bool = False
@@ -199,7 +199,7 @@ class TrainerConfig:
     vis: Literal["none", "tensorboard", "jsonl", "viewer", "wandb", "comet"] = "jsonl"
     viewer_port: int = 7007              # ViewerConfig (config.py:82)
     log_every: int = 10
-    profile_dir: Optional[str] = None   # jax.profiler trace of steps 10..14
+    profile_dir: Optional[str] = None   # torch.profiler trace of steps 10..14
     # steps per device dispatch: 0 = auto (gcd of the cadence settings,
     # capped at 100), 1 = legacy per-step host loop. Multi-step dispatch
     # runs a lax.scan over a device-resident image cache (engine.scan_runner)

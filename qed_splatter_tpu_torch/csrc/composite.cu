@@ -77,6 +77,7 @@
 // memory.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #ifndef QED_FWD_PIX
@@ -360,6 +361,302 @@ void launch(const void* means, const void* conics, const void* colors,
       static_cast<int32_t*>(cut), k, num_tiles_x, k_chunk, early_eps);
 }
 
+// ------------------------------------------------------------------------
+// The mixed_precision variant (rasterize_pallas.py's op_dtype = bfloat16 in
+// _fwd_tile_body, the forward of #1 and #3 with bf16 operands).
+//
+// The JAX kernel rounds the operands of its matrix products to bf16 and
+// accumulates in f32: the log-space transmittance (an exclusive sum of
+// l_j = log(max(1 - alpha_j, 1e-6)) as a triangular product within 128-slot
+// blocks, each block offset by the unrounded f32 sum of the blocks in front)
+// and the colour contraction. This kernel has no matrix product: it
+// reproduces the same roundings in the per-pixel loop.
+//   E_k = offset_b + sum_{j in b, j < k} bf16(l_j),  T_k = exp(E_k),
+//   w_k = alpha_k T_k,  out += bf16(colour_k) bf16(w_k),  acc += w_k,
+// with alpha exactly as the f32 kernel evaluates it. Every bf16(l_j) is a
+// multiple of 2^-15 (alpha > 1/255 gives |l| > 2^-8, else l = 0), so the
+// in-block sum is carried as an integer count of 2^-15: exact in any order,
+// and equal to the f32 sum wherever |E| < 512 (beyond, T = 0 either way).
+// A batch is one block. Chunks (k_chunk > 0, a multiple of 128) start from
+// E = 0 and compose as out_A + (1 - acc_A) out_B, the JAX chunking, with the
+// f32 kernel's skip predicate on the composed acc.
+//
+// For the backward (offsets != null) it hands over per pixel: each block's
+// offset and integer sum (offsets, sums [T, nb, P]), from which the backward
+// rebuilds every E_k exactly by subtraction, and each chunk's 1 - acc of the
+// chunks in front (trans [T, nc, P]). A product form of T, as the f32 kernel
+// hands over, would not give the same T: E is a rounded sum of logs.
+//
+// Bound: operations, as the f32 kernel, with a log, an exp of E in place of
+// T's product and the roundings of l and w per (pixel, slot) pair
+// (chip_smoke.py's fwd_mixed_ops_per_pair counts 32 + 2D). A staged batch
+// is one block (128 slots), so the stage is half the f32 kernel's.
+// Resources (nvcc 12.8 -Xptxas -v, sm_90a, kPix = 2): 72 / 64 / 64 / 56
+// registers at D = 4 / 3 / 2 / 1, 12,288 bytes of static shared memory, no
+// spills.
+
+constexpr int kMixBlock = 128;            // the JAX kernel's _CUM_BLOCK
+constexpr float kMixScale = 32768.0f;     // 2^15
+constexpr float kMixUnit = 1.0f / 32768.0f;
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    composite_mixed_kernel(const float* __restrict__ means,     // [T, 2, K]
+                           const float* __restrict__ conics,    // [T, 3, K]
+                           const float* __restrict__ colors,    // [T, D, K]
+                           const float* __restrict__ opac,      // [T, 1, K]
+                           const int32_t* __restrict__ counts,  // [T] or null
+                           float* __restrict__ out,             // [T, D, P]
+                           float* __restrict__ acc_out,         // [T, 1, P]
+                           int32_t* __restrict__ chunks_run,    // [T] or null
+                           float* __restrict__ offsets,   // [T, nb, P] or null
+                           int32_t* __restrict__ sums,    // [T, nb, P]
+                           float* __restrict__ trans_out, // [T, nc, P]
+                           int k, int num_tiles_x, int k_chunk, float early_eps,
+                           int nb, int nc) {
+  __shared__ Slot s_slot[2][kMixBlock];
+
+  const float alpha_eps = static_cast<float>(1.0 / 255.0);
+  const float alpha_max = static_cast<float>(0.999);
+  const int t = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float half = kTile * 0.5f;
+  const float cxo = static_cast<float>((t % num_tiles_x) * kTile) + half;
+  const float cyo = static_cast<float>((t / num_tiles_x) * kTile) + half;
+  const int col0 = (warp & 1) * 8 + (lane & 7);
+  const int row0 = (warp >> 1) * (4 * kPix) + (lane >> 3) * kPix;
+  const float pxl = static_cast<float>(col0) + (0.5f - half);
+  float pyl[kPix];
+  int pix[kPix];
+#pragma unroll
+  for (int q = 0; q < kPix; ++q) {
+    pyl[q] = static_cast<float>(row0 + q) + (0.5f - half);
+    pix[q] = (row0 + q) * kTile + col0;
+  }
+  float* out_t = out + static_cast<size_t>(t) * D * kPixels;
+  float* acc_t = acc_out + static_cast<size_t>(t) * kPixels;
+
+  const int n_t = counts != nullptr ? min(max(counts[t], 0), k) : k;
+  if (n_t == 0) {
+#pragma unroll
+    for (int q = 0; q < kPix; ++q) {
+#pragma unroll
+      for (int c = 0; c < D; ++c) out_t[c * kPixels + pix[q]] = 0.0f;
+      acc_t[pix[q]] = 0.0f;
+    }
+    if (chunks_run != nullptr && tid == 0) chunks_run[t] = k > 0 ? 1 : 0;
+    return;
+  }
+
+  const size_t base = static_cast<size_t>(t) * k;
+  const float* mx_g = means + base * 2;
+  const float* my_g = mx_g + k;
+  const float* ca_g = conics + base * 3;
+  const float* cb_g = ca_g + k;
+  const float* cc_g = cb_g + k;
+  const float* op_g = opac + base;
+  const float* col_g = colors + base * D;
+  const int chunk_len = k_chunk > 0 ? k_chunk : k;
+
+  // per pixel: this chunk's out and acc, the composed chunks in front, and
+  // the exponent: the block's offset, its unrounded log sum, its rounded
+  // log sum in units of 2^-15
+  float part[kPix][D], part_acc[kPix], tot[kPix][D], tot_acc[kPix];
+  float e_off[kPix], blk_sum[kPix];
+  int units[kPix];
+#pragma unroll
+  for (int q = 0; q < kPix; ++q) {
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      part[q][c] = 0.0f;
+      tot[q][c] = 0.0f;
+    }
+    part_acc[q] = tot_acc[q] = 0.0f;
+    e_off[q] = blk_sum[q] = 0.0f;
+    units[q] = 0;
+    if (trans_out != nullptr)
+      trans_out[static_cast<size_t>(t) * nc * kPixels + pix[q]] = 1.0f;
+  }
+
+  // a batch is one block: it ends at every multiple of kMixBlock (chunk
+  // boundaries are such multiples) and at the tile's last slot
+  auto batch_len = [&](int s) {
+    return min(kMixBlock - s % kMixBlock, n_t - s);
+  };
+  // staging as in the f32 kernel, the colours rounded to bf16
+  constexpr int kMixStage = (kMixBlock + kThreads - 1) / kThreads;
+  float raw[kMixStage][6 + D];
+  auto fetch = [&](int s, int n) {
+#pragma unroll
+    for (int i = 0; i < kMixStage; ++i) {
+      const int j = tid + i * kThreads;
+      if (j < n) {
+        const int g = s + j;
+        raw[i][0] = mx_g[g];
+        raw[i][1] = my_g[g];
+        raw[i][2] = ca_g[g];
+        raw[i][3] = cb_g[g];
+        raw[i][4] = cc_g[g];
+        raw[i][5] = op_g[g];
+#pragma unroll
+        for (int c = 0; c < D; ++c) raw[i][6 + c] = col_g[c * k + g];
+      }
+    }
+  };
+  auto put = [&](int buf, int n) {
+#pragma unroll
+    for (int i = 0; i < kMixStage; ++i) {
+      const int j = tid + i * kThreads;
+      if (j < n) {
+        Slot sl;
+        sl.mx = raw[i][0] - cxo;
+        sl.my = raw[i][1] - cyo;
+        sl.ha = 0.5f * raw[i][2];
+        sl.cb = raw[i][3];
+        sl.hc = 0.5f * raw[i][4];
+        sl.op = raw[i][5];
+        sl.thr = logf(255.0f * raw[i][5]) + kCullMargin;
+        sl.pad = 0.0f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sl.col[c] = 0.0f;
+#pragma unroll
+        for (int c = 0; c < D; ++c) sl.col[c] = round_bf16(raw[i][6 + c]);
+        s_slot[buf][j] = sl;
+      }
+    }
+  };
+
+  int s = 0;
+  int n = batch_len(0);
+  int buf = 0;
+  int chunks = 1;
+  fetch(0, n);
+  put(0, n);
+  __syncthreads();
+
+  while (true) {
+    const int s_next = s + n;
+    const bool more = s_next < n_t;
+    const int n_next = more ? batch_len(s_next) : 0;
+    if (more) fetch(s_next, n_next);
+
+    const Slot* sl = s_slot[buf];
+#pragma unroll 2
+    for (int j = 0; j < n; ++j) {
+      const float4* sp = reinterpret_cast<const float4*>(&sl[j]);
+      const float4 sa = sp[0];
+      const float4 sb = sp[1];
+      const float dx = sa.x - pxl;
+      float sigma[kPix];
+      bool near = false;
+#pragma unroll
+      for (int q = 0; q < kPix; ++q) {
+        const float dy = sa.y - pyl[q];
+        sigma[q] = (sa.z * dx * dx + sb.x * dy * dy) + sa.w * dx * dy;
+        near = near || sigma[q] < sb.z;
+      }
+      // alpha = 0 on the whole warp: l = 0, w = 0, nothing changes
+      if (!__any_sync(kFull, near)) continue;
+      const float4 sc = sp[2];
+      const float col[4] = {sc.x, sc.y, sc.z, sc.w};
+#pragma unroll
+      for (int q = 0; q < kPix; ++q) {
+        const float a_raw = sb.y * expf(-sigma[q]);
+        const bool keep = (sigma[q] >= 0.0f) && (a_raw > alpha_eps);
+        const float alpha = keep ? fminf(a_raw, alpha_max) : 0.0f;
+        const float l = logf(fmaxf(1.0f - alpha, 1e-6f));
+        const float e = e_off[q] + __int2float_rn(units[q]) * kMixUnit;
+        const float w = alpha * expf(e);
+        const float wb = round_bf16(w);
+#pragma unroll
+        for (int c = 0; c < D; ++c)
+          part[q][c] = __fmaf_rn(col[c], wb, part[q][c]);  // exact product
+        part_acc[q] += w;
+        units[q] += __float2int_rn(round_bf16(l) * kMixScale);
+        blk_sum[q] += l;
+      }
+    }
+
+    // the block ends: hand it over, and move the offset past it
+    const int b = s / kMixBlock;
+#pragma unroll
+    for (int q = 0; q < kPix; ++q) {
+      if (offsets != nullptr) {
+        const size_t at = (static_cast<size_t>(t) * nb + b) * kPixels + pix[q];
+        offsets[at] = e_off[q];
+        sums[at] = units[q];
+      }
+      e_off[q] = e_off[q] + blk_sum[q];
+      blk_sum[q] = 0.0f;
+      units[q] = 0;
+    }
+    s = s_next;
+    if (!more || s % chunk_len == 0) {
+      // the chunk ends: out_A + (1 - acc_A) out_B, E from 0 again
+#pragma unroll
+      for (int q = 0; q < kPix; ++q) {
+        const float tr = 1.0f - tot_acc[q];
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+          tot[q][c] = tot[q][c] + tr * part[q][c];
+          part[q][c] = 0.0f;
+        }
+        tot_acc[q] = tot_acc[q] + tr * part_acc[q];
+        part_acc[q] = 0.0f;
+        e_off[q] = 0.0f;
+      }
+    }
+    if (!more) break;
+    if (s % chunk_len == 0) {
+      bool open = false;
+#pragma unroll
+      for (int q = 0; q < kPix; ++q)
+        open = open || ((1.0f - tot_acc[q]) >= early_eps);
+      if (!__syncthreads_or(open)) break;
+      if (trans_out != nullptr) {
+#pragma unroll
+        for (int q = 0; q < kPix; ++q)
+          trans_out[(static_cast<size_t>(t) * nc + chunks) * kPixels + pix[q]] =
+              1.0f - tot_acc[q];
+      }
+      ++chunks;
+    }
+    put(buf ^ 1, n_next);
+    __syncthreads();
+    buf ^= 1;
+    n = n_next;
+  }
+
+#pragma unroll
+  for (int q = 0; q < kPix; ++q) {
+#pragma unroll
+    for (int c = 0; c < D; ++c) out_t[c * kPixels + pix[q]] = tot[q][c];
+    acc_t[pix[q]] = tot_acc[q];
+  }
+  if (chunks_run != nullptr && tid == 0) chunks_run[t] = chunks;
+}
+
+template <int D>
+void launch_mixed(const void* means, const void* conics, const void* colors,
+                  const void* opac, const void* counts, void* out, void* acc,
+                  void* chunks_run, void* offsets, void* sums, void* trans,
+                  int t, int k, int num_tiles_x, int k_chunk, float early_eps,
+                  int nb, int nc, cudaStream_t stream) {
+  composite_mixed_kernel<D><<<t, kThreads, 0, stream>>>(
+      static_cast<const float*>(means), static_cast<const float*>(conics),
+      static_cast<const float*>(colors), static_cast<const float*>(opac),
+      static_cast<const int32_t*>(counts), static_cast<float*>(out),
+      static_cast<float*>(acc), static_cast<int32_t*>(chunks_run),
+      static_cast<float*>(offsets), static_cast<int32_t*>(sums),
+      static_cast<float*>(trans), k, num_tiles_x, k_chunk, early_eps, nb, nc);
+}
+
 }  // namespace
 
 #define QED_FWD_ARGS                                                      \
@@ -383,6 +680,38 @@ extern "C" int qed_composite_tiles(const void* means, const void* conics,
     case 2: launch<2>(QED_FWD_ARGS); break;
     case 3: launch<3>(QED_FWD_ARGS); break;
     case 4: launch<4>(QED_FWD_ARGS); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+#define QED_MIX_ARGS                                                        \
+  means, conics, colors, opac, counts, out, acc, chunks_run, offsets, sums, \
+      trans, t, k, num_tiles_x, k_chunk, early_eps, nb, nc, st
+
+// The mixed_precision forward. offsets, sums and trans are given together
+// (training) or all null.
+extern "C" int qed_composite_tiles_mixed(
+    const void* means, const void* conics, const void* colors,
+    const void* opac, const void* counts, void* out, void* acc,
+    void* chunks_run, void* offsets, void* sums, void* trans, int t, int k,
+    int d, int num_tiles_x, int k_chunk, float early_eps, void* stream) {
+  if (t <= 0) return static_cast<int>(cudaGetLastError());
+  if ((offsets == nullptr) != (sums == nullptr) ||
+      (offsets == nullptr) != (trans == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool chunked = k_chunk > 0 && k_chunk < k;
+  if (chunked && k_chunk % kMixBlock != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!chunked) k_chunk = 0;
+  const int nb = (k + kMixBlock - 1) / kMixBlock;
+  const int nc = chunked ? (k + k_chunk - 1) / k_chunk : 1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 1: launch_mixed<1>(QED_MIX_ARGS); break;
+    case 2: launch_mixed<2>(QED_MIX_ARGS); break;
+    case 3: launch_mixed<3>(QED_MIX_ARGS); break;
+    case 4: launch_mixed<4>(QED_MIX_ARGS); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -15,8 +15,9 @@ One call does, for one camera, in the JAX step's order:
 
 Parameters and Adam moments are updated **in place**: the returned
 :class:`TrainState` holds the same parameter and moment tensors as the one
-passed in, with new statistics and step. ``mixed_precision`` and the
-bilateral grid are not ported and raise.
+passed in, with new statistics and step. ``cfg.mixed_precision`` takes the
+bf16 operand compositing kernels. The bilateral grid is not ported and
+raises.
 """
 
 from __future__ import annotations
@@ -45,14 +46,8 @@ from qed_splatter_tpu_torch.models.splatfacto import render, total_loss
 from qed_splatter_tpu_torch.ops.rasterize import absgrad_scatter
 
 
-
 def refuse_bilateral_grid() -> NotImplementedError:
     return not_ported("use_bilateral_grid=True", 6, "models/bilateral_grid.py")
-
-
-def refuse_mixed_precision() -> NotImplementedError:
-    return not_ported("mixed_precision=True (bf16 compositing)", 7,
-                      "mixed_precision bf16 compositing")
 
 
 @dataclasses.dataclass
@@ -138,8 +133,6 @@ class TrainStep:
                  need_absgrad: bool = True, device="cuda"):
         if cfg.use_bilateral_grid:
             raise refuse_bilateral_grid()
-        if cfg.mixed_precision:
-            raise refuse_mixed_precision()
         self.cfg, self.optims = cfg, optims
         self.width, self.height = width, height
         self.has_depth, self.has_mask = has_depth, has_mask

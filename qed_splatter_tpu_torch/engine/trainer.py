@@ -23,7 +23,11 @@ One call of :meth:`Trainer.train` runs the per-step loop to the budget:
   checkpoint, or ignore;
 - eval renders that re-render once at a doubled K when they truncated;
 - checkpoints, and ``finalize``: a checkpoint (with the pair-budget table,
-  which the JAX package's ``finalize`` drops) and ``splat.ply``.
+  which the JAX package's ``finalize`` drops) and ``splat.ply``;
+- with ``profile_dir``, a ``torch.profiler`` trace (CPU and, on CUDA, the
+  device) of steps start + 10 to start + 14 of each :meth:`Trainer.train`
+  call, the JAX trainer's window, written as a Chrome trace beside a
+  ``key_averages`` table.
 
 The step updates parameters and moments in place, so every checkpoint,
 pre-growth state and rollback target is a copy. Random draws come from
@@ -33,8 +37,9 @@ datamanager's.
 Not ported, each refused with :class:`NotImplementedError` naming its
 ROADMAP item: multi-step dispatch (``steps_per_dispatch`` other than 0 or
 1; 0 runs this loop), ``supervise`` and the attempt journal, more than one
-data or model shard, the viewer, the TensorBoard / wandb / comet writers,
-``profile_dir``, ``mixed_precision`` and the bilateral grid.
+data or model shard, the viewer, the TensorBoard / wandb / comet writers
+and the bilateral grid. ``TrainerConfig.mixed_precision`` turns on the
+model's (the bf16 operand compositing kernels), as in the JAX trainer.
 """
 
 from __future__ import annotations
@@ -63,7 +68,6 @@ from qed_splatter_tpu_torch.engine.train_step import (
     init_train_state,
     make_train_step,
     refuse_bilateral_grid,
-    refuse_mixed_precision,
 )
 from qed_splatter_tpu_torch.engine.writer import MetricsWriter
 from qed_splatter_tpu_torch.metrics import (
@@ -124,11 +128,6 @@ def _refuse_unported(config: TrainerConfig) -> None:
             f"the {config.vis} metrics backend (of tensorboard, wandb and "
             f"comet; the port writes JSONL and the console)", 9,
             "the remaining CLI subcommands and writer backends")
-    if config.profile_dir:
-        raise not_ported("profile_dir (a trace of steps 10-14)", 12,
-                         "the port's own bench")
-    if config.mixed_precision or config.model.mixed_precision:
-        raise refuse_mixed_precision()
     if config.model.use_bilateral_grid:
         raise refuse_bilateral_grid()
 
@@ -146,7 +145,7 @@ class Trainer:
         if not config.data.data and datamanager is None:
             raise ValueError("TrainerConfig.data.data is required")
         self.config = config
-        self.cfg = config.model
+        self.cfg = self._model_config(config)
         self.device = resolve_device(device)
         self.dm = datamanager or FullImageDatamanager(config.data,
                                                       seed=config.seed)
@@ -173,6 +172,14 @@ class Trainer:
         self.state = self._setup_state()
 
     # ------------------------------------------------------------ setup
+
+    @staticmethod
+    def _model_config(config: TrainerConfig):
+        """The model config the steps read: ``TrainerConfig.mixed_precision``
+        (the user-facing flag) turns on the model's."""
+        if config.mixed_precision and not config.model.mixed_precision:
+            return dataclasses.replace(config.model, mixed_precision=True)
+        return config.model
 
     def _setup_state(self) -> TrainState:
         """The state restored from ``load_dir`` (with its adaptive tables),
@@ -279,10 +286,11 @@ class Trainer:
                 for f in dataclasses.fields(DensifyStats))),
         )
 
-    def _maybe_grow(self) -> bool:
+    def _maybe_grow(self, cur: int, max_hw: int) -> bool:
         """Double the capacity (up to ``max_capacity``) when more than 85%
-        of the slots are alive and that capacity was not refused; keeps the
-        pre-growth state on the CPU as the canary's way back."""
+        of the slots are alive and that capacity was not refused, ahead of
+        the refine at step ``cur``; keeps the pre-growth state on the CPU as
+        the canary's way back, and what that refine needs to run again."""
         cap = self.state.params.capacity
         if not (int(self.state.params.num_alive()) > 0.85 * cap
                 and cap < self.cfg.max_capacity):
@@ -293,7 +301,7 @@ class Trainer:
         pre = ckpt.copy_state(self.state, "cpu")
         print(f"Growing gaussian capacity {cap} -> {new_cap}")
         self.state = self._grown_state(self.state, new_cap)
-        self._canary = (cap, new_cap, pre)
+        self._canary = (cap, new_cap, pre, cur, max_hw)
         self.writer.write(self.state.step, {"capacity_before": cap,
                                             "capacity_after": new_cap},
                           prefix="grow")
@@ -302,7 +310,7 @@ class Trainer:
     def _revert_growth(self, cur: int, err: Exception) -> None:
         """The refine or step after a growth ran out of memory: restore the
         pre-growth state and refuse that capacity."""
-        pre_cap, new_cap, pre = self._canary
+        pre_cap, new_cap, pre = self._canary[:3]
         print(f"GROWTH CANARY FAILED at step {cur} (capacity {pre_cap} -> "
               f"{new_cap}): {type(err).__name__}: {str(err)[:300]}. "
               f"Restoring the pre-growth state and refusing capacity "
@@ -333,7 +341,7 @@ class Trainer:
         cfgt = self.config
         if (cur > self.cfg.warmup_length and cur % self.cfg.refine_every == 0
                 and cur >= self._densify_frozen_until):
-            grown = self._maybe_grow()
+            grown = self._maybe_grow(cur, max_hw)
             try:
                 info = self._refine(cur, max_hw)
             except torch.cuda.OutOfMemoryError as e:
@@ -481,7 +489,12 @@ class Trainer:
         step = start_step
         # the loss of step N is read after step N + 1 ran
         prev_loss = None
+        # the profiler's window, the JAX trainer's: steps start + 10 to
+        # start + 14 (once, whatever a rollback does to the step)
+        prof, traced = None, not cfgt.profile_dir
         while step < total:
+            if not traced and step == start_step + 10:
+                prof, traced = self._start_profile(), True
             d = self._downscale_factor(step)
             self._sync_bucket_cfg(d)
             item = self.dm.next_train(step)
@@ -497,10 +510,20 @@ class Trainer:
             except torch.cuda.OutOfMemoryError as e:
                 if self._canary is None:
                     raise
+                refine_at = self._canary[3:]
                 self._revert_growth(step, e)
+                # the pre-growth state is from before that cadence's refine:
+                # run it again (with its reset and stats reset) at the old
+                # capacity, as a failed refine is run again
+                info = self._refine(*refine_at)
+                self.writer.write(refine_at[0], info._asdict(),
+                                  prefix="refine")
                 continue
             self._canary = None
             cur = step = step + 1
+            if prof is not None and cur == start_step + 15:
+                self._stop_profile(prof, start_step + 10, cur)
+                prof = None
 
             if prev_loss is not None and not math.isfinite(float(prev_loss)):
                 step = self._handle_divergence(cur - 1)
@@ -521,6 +544,8 @@ class Trainer:
                     continue
             self._callbacks(cur, max(cam.width, cam.height))
 
+        if prof is not None:
+            self._stop_profile(prof, start_step + 10, step)
         done = total - start_step
         if done > 0:
             wall = time.perf_counter() - t0
@@ -529,6 +554,35 @@ class Trainer:
         if finalize:
             self.finalize(total)
         return self.state
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, first: int, end: int) -> Path:
+        """Stop the trace of steps [first, end) and write it into
+        ``profile_dir``: ``trace_steps_<first>-<end - 1>.json`` (Chrome
+        trace) and ``key_averages_steps_<first>-<end - 1>.txt``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = Path(self.config.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        name = f"steps_{first}-{end - 1}"
+        path = out / f"trace_{name}.json"
+        prof.export_chrome_trace(str(path))
+        sort = ("cuda_time_total" if self.device.type == "cuda"
+                else "cpu_time_total")
+        (out / f"key_averages_{name}.txt").write_text(
+            prof.key_averages().table(sort_by=sort, row_limit=60))
+        print(f"Profile of steps {first}-{end - 1} written to {path}")
+        return path
 
     def finalize(self, total: Optional[int] = None) -> None:
         """End-of-training checkpoint (with both adaptive tables) and

@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from qed_splatter_tpu_torch import not_ported, resolve_device
+from qed_splatter_tpu_torch import resolve_device
 from qed_splatter_tpu_torch.configs import ModelConfig
 from qed_splatter_tpu_torch.models.gaussians import GaussianParams
 from qed_splatter_tpu_torch.ops.camera import get_viewmat
@@ -107,11 +107,9 @@ def render(
     ``cfg.output_depth_during_training``. The absgrad side channel is
     ``absgrad_seed`` (zeros [C, 2]) on the kernel path and ``tile_eps``
     (zeros [T, K, 2], with ``absgrad_scatter``) on the plain path
-    (``cfg.use_pallas=False``). ``cfg.mixed_precision`` is not ported and
-    raises."""
-    if train and cfg.mixed_precision:
-        raise not_ported("mixed_precision=True (bf16 compositing)", 7,
-                         "mixed_precision bf16 compositing")
+    (``cfg.use_pallas=False``). ``cfg.mixed_precision`` composites with
+    the bf16 operand kernels when training (eval renders stay float32; the
+    plain path ignores it, as the JAX package's does)."""
     grad_mode = contextlib.nullcontext() if train else torch.no_grad()
     with grad_mode:
         return _render(params, c2w, K, width, height, cfg, step, train,
@@ -193,6 +191,7 @@ def _render(params, c2w, K, width, height, cfg, step, train, crop_box,
             tile_size=cfg.tile_size,
             tile_counts=binning.tile_counts,
             absgrad_seed=absgrad_seed,
+            mixed_precision=cfg.mixed_precision and train,
         )
     else:
         out = rasterize_tiles(

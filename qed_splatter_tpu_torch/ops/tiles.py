@@ -36,6 +36,12 @@ SLAB_GATHER = CudaKernel(
     [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                              ctypes.c_longlong, ctypes.c_int],
 )
+# its gather mode on 4-byte keys (the microbenchmark's slab kernel)
+SLAB_GATHER32 = CudaKernel(
+    "slab_gather", "qed_slab_gather_i32",
+    [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int],
+)
 
 
 class TileBinning(NamedTuple):
@@ -79,8 +85,11 @@ def slab_ranks_ref(sorted_keys: torch.Tensor, starts: torch.Tensor,
 
 
 def _launch_slab(sorted_keys, starts, counts, k, fill, rank_bits):
-    if sorted_keys.dtype != torch.int64 or starts.dtype != torch.int64:
-        raise TypeError("the window gather takes int64 keys and starts")
+    wide = sorted_keys.dtype == torch.int64
+    if (not wide and (sorted_keys.dtype != torch.int32 or counts is not None)
+            or starts.dtype != torch.int64):
+        raise TypeError("the window gather takes int64 starts and int64 keys "
+                        "(int32 keys in its gather mode)")
     if sorted_keys.dim() != 1 or starts.dim() != 1 or k <= 0:
         raise ValueError("the window gather takes 1-D keys, 1-D starts and "
                          "k > 0")
@@ -102,8 +111,11 @@ def _launch_slab(sorted_keys, starts, counts, k, fill, rank_bits):
     keys = sorted_keys.contiguous()
     st = starts.contiguous()
     t = st.shape[0]
-    out = torch.empty((t, k), dtype=torch.int64, device=keys.device)
-    if counts is None:
+    out = torch.empty((t, k), dtype=keys.dtype, device=keys.device)
+    if not wide:
+        SLAB_GATHER32(ptr(keys), ptr(st), ptr(out), keys.shape[0], t, k,
+                      fill)
+    elif counts is None:
         SLAB_GATHER(ptr(keys), ptr(st), ctypes.c_void_p(None), ptr(out),
                     keys.shape[0], t, k, fill, 0)
     else:
@@ -115,7 +127,9 @@ def _launch_slab(sorted_keys, starts, counts, k, fill, rank_bits):
 def slab_gather(sorted_keys: torch.Tensor, starts: torch.Tensor, k: int,
                 fill: int) -> torch.Tensor:
     """[T, k] windows ``sorted_keys[s_t : s_t + k]`` with ``s_t`` clamped to
-    [0, M]; elements past M read ``fill``. int64 keys and starts.
+    [0, M]; elements past M read ``fill``. int64 starts; int64 keys, or
+    int32 keys (4-byte elements: the port of the ``tools`` microbenchmark's
+    slab kernel, its own launch count ``SLAB_GATHER32``).
 
     CUDA tensors launch ``csrc/slab_gather.cu``; CPU tensors take
     :func:`slab_gather_ref`."""

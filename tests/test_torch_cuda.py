@@ -414,3 +414,151 @@ def test_trainer_on_the_card_grows_and_launches_every_kernel(gen, tmp_path):
     rows = [json.loads(x) for x in open(trainer.run_dir / "metrics.jsonl")]
     assert all(np.isfinite(r["loss"]) for r in rows if r["split"] == "train")
     assert (trainer.run_dir / "splat.ply").exists()
+
+
+@pytest.mark.parametrize("d,k,chunked", [(3, 128, False), (4, 256, False),
+                                         (3, 333, False), (4, 2304, True)])
+def test_mixed_kernels_match_plain(gen, d, k, chunked):
+    """The mixed_precision (bf16 operand) forward and backward kernels
+    against their plain versions: the forward within TOL with the block
+    sums of its handoff equal, the backward, fed by that handoff, against
+    autograd of the plain mixed forward; tile counts below K, exact zeros
+    past them."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    t, ntx = 60, 10
+    slabs = _slabs(gen, t, d, k, ntx)
+    slabs[3] *= 0.5 if not chunked else 0.05
+    counts = torch.randint(0, k + 1, (t,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    counts[:3] = torch.tensor([0, 1, k], device="cuda", dtype=torch.int32)
+    k_chunk = rp.K_CHUNK if chunked else 0
+    runs = torch.empty(t, dtype=torch.int32, device="cuda")
+    runs_ref = torch.empty_like(runs)
+    before = (rp.COMPOSITE_MIXED.launches, rp.COMPOSITE_BWD_MIXED.launches)
+    out, acc, h = rp.composite_tiles_fwd_mixed(*slabs, ntx, 16, counts,
+                                               k_chunk, runs, tail=True)
+    ro, ra, hr = rp.composite_tiles_ref(*slabs, ntx, 16, counts, k_chunk,
+                                        runs_ref, tail=True, mixed=True)
+    assert float((out - ro).abs().max()) <= TOL
+    assert float((acc - ra).abs().max()) <= TOL
+    assert torch.equal(runs, runs_ref)
+    n_run = rp.slots_run(t, k, k_chunk, runs, counts, "cuda")
+    nb, _ = rp.mixed_shapes(k, k_chunk)
+    blk = (torch.arange(nb, device="cuda") * rp.MIX_BLOCK)[None] < n_run[
+        :, None]
+    assert torch.equal(h.sums[blk], hr.sums[blk])
+    gout = torch.randn((t, d, 256), generator=gen, device="cuda")
+    gacc = torch.randn((t, 1, 256), generator=gen, device="cuda")
+    got = rp.composite_tiles_bwd_mixed(*slabs, gout, gacc, ntx, 16, k_chunk,
+                                       runs, counts, h)
+    torch.cuda.synchronize()
+    assert (rp.COMPOSITE_MIXED.launches, rp.COMPOSITE_BWD_MIXED.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, ntx, 16,
+                                      k_chunk=k_chunk, chunks_run=runs,
+                                      tile_counts=counts, mixed=True)
+    assert _bwd_rel_err(got, want) <= 1e-3
+    past = torch.arange(k, device="cuda")[None, None, :] >= counts[
+        :, None, None].long()
+    assert all(not bool(torch.where(past, g, 0.0).any()) for g in got)
+
+
+def test_mixed_train_step_on_the_card(gen):
+    """``mixed_precision`` trains through make_train_step on the card, through
+    the mixed kernels only, within the bf16 envelope of the float32 step."""
+    import dataclasses
+
+    from qed_splatter_tpu_torch.configs import ModelConfig, \
+        default_optimizers
+    from qed_splatter_tpu_torch.engine.optim import GroupOptimizers
+    from qed_splatter_tpu_torch.engine.train_step import init_train_state, \
+        make_train_step
+    from qed_splatter_tpu_torch.models.gaussians import init_from_points
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+    from qed_splatter_tpu_torch.testing import orbit_c2w_opengl, \
+        orbit_intrinsics
+
+    rng = np.random.default_rng(1)
+    pts = rng.uniform(-1, 1, (3000, 3)).astype(np.float32)
+    pts[:, 2] += 3.0
+    w, h = 200, 120
+    batch = dict(c2w=torch.as_tensor(orbit_c2w_opengl(3.0, 0.3, 0.1),
+                                     device="cuda"),
+                 K=torch.as_tensor(orbit_intrinsics(w, h), device="cuda"),
+                 cam_idx=0,
+                 rgb=torch.rand((h, w, 3), generator=gen, device="cuda"),
+                 depth=torch.rand((h, w, 1), generator=gen, device="cuda")
+                 * 3 + 1)
+    optims = GroupOptimizers(default_optimizers())
+    cfg = ModelConfig(max_per_tile=256, background_color="black",
+                      mixed_precision=True)
+    state = init_train_state(init_from_points(pts, None, capacity=4096),
+                             optims, num_cameras=1)
+    step = make_train_step(cfg, optims, w, h, has_depth=True)
+    before = (rp.COMPOSITE.launches, rp.COMPOSITE_MIXED.launches)
+    gm = step.grads(state, batch, None)
+    torch.cuda.synchronize()
+    assert (rp.COMPOSITE.launches, rp.COMPOSITE_MIXED.launches) == (
+        before[0], before[1] + 1)
+    g32 = make_train_step(dataclasses.replace(cfg, mixed_precision=False),
+                          optims, w, h, has_depth=True).grads(state, batch,
+                                                              None)
+    assert abs(float(gm.loss) - float(g32.loss)) <= 1e-3 * float(g32.loss)
+    for g in ("means", "opacities", "features_dc"):
+        scale = float(g32.params[g].abs().max())
+        assert float((gm.params[g] - g32.params[g]).abs().max()) <= (
+            5e-2 * scale)
+
+
+def test_slab_gather_4_byte_kernel_exact(gen):
+    """Kernel #6's port: the gather mode on int32 keys, odd and unaligned
+    starts, a view whose first key is not 16-byte aligned."""
+    from qed_splatter_tpu_torch.ops import tiles
+
+    m = 100_000
+    keys = torch.sort(torch.randint(0, 1 << 31, (m,), generator=gen,
+                                    device="cuda")).values.to(torch.int32)
+    starts = torch.sort(torch.randint(0, m, (500,), generator=gen,
+                                      device="cuda")).values
+    starts[:3] = torch.tensor([-7, m, m + 9], device="cuda")
+    before = tiles.SLAB_GATHER32.launches
+    for k in (1, 3, 256, 333, 2048):
+        assert torch.equal(tiles.slab_gather(keys, starts, k, -1),
+                           tiles.slab_gather_ref(keys, starts, k, -1))
+    assert torch.equal(tiles.slab_gather(keys[1:], starts, 256, 7),
+                       tiles.slab_gather_ref(keys[1:], starts, 256, 7))
+    assert tiles.SLAB_GATHER32.launches == before + 6
+
+
+@pytest.mark.parametrize("shape,offset", [((327_680, 10), 0),
+                                          ((4_396_032, 10), 0),
+                                          ((1001, 3), 1)])
+def test_copy_rows_kernel_exact(gen, shape, offset):
+    """Kernel #7's port: bit-equal to its plain version, 16-byte accesses or
+    (a misaligned view) one float at a time."""
+    from qed_splatter_tpu_torch.ops.copy_rows import COPY_ROWS, copy_rows, \
+        copy_rows_ref
+
+    n = shape[0] * shape[1]
+    x = torch.rand(n + offset, generator=gen, device="cuda")[offset:].view(
+        shape)
+    before = COPY_ROWS.launches
+    y = copy_rows(x)
+    torch.cuda.synchronize()
+    assert COPY_ROWS.launches == before + 1
+    assert torch.equal(y, copy_rows_ref(x)) and y.data_ptr() != x.data_ptr()
+
+
+def test_microbench_times_a_graph_and_an_eager_loop(gen):
+    from qed_splatter_tpu_torch.utils import microbench
+
+    x = torch.rand((1 << 20,), generator=gen, device="cuda")
+    graph = microbench.device_time_per_call(lambda a: a * 2, (x,), n=10)
+    assert microbench.last_method == "graph" and 0 < graph < 1e-2
+    eager = microbench.device_time_per_call(lambda a: a * 2, (x,), n=10,
+                                            graph=False)
+    assert microbench.last_method == "eager" and 0 < eager < 1e-2
+    # a host sync cannot be captured: the eager timing, and it says so
+    microbench.device_time_per_call(lambda a: float(a.sum()), (x,), n=3)
+    assert microbench.last_method == "eager"

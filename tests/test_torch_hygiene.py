@@ -50,10 +50,19 @@ def test_hygiene_covers_the_trainer_path():
             "metrics.py", "cli.py", "testing.py"} <= names
 
 
+def test_hygiene_covers_the_bench_path():
+    names = {str(p.relative_to(ROOT / "qed_splatter_tpu_torch"))
+             for p in PORT_FILES[:-1]}
+    assert {"bench.py", "utils/chiplock.py", "utils/microbench.py",
+            "tools/bench_gather.py", "tools/bench_gather3.py",
+            "ops/copy_rows.py"} <= names
+
+
 def test_port_has_its_kernel_sources():
     srcs = sorted(p.name for p in (ROOT / "qed_splatter_tpu_torch" / "csrc")
                   .glob("*.cu"))
-    assert srcs == ["composite.cu", "composite_bwd.cu", "slab_gather.cu"]
+    assert srcs == ["composite.cu", "composite_bwd.cu", "copy_rows.cu",
+                    "slab_gather.cu"]
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -92,8 +92,14 @@ def test_window_gather_clamps_and_checks():
     assert got.tolist() == [[0, 1, 2, 3], [0, 1, 2, 3], [49, -1, -1, -1],
                             [-1] * 4, [-1] * 4]
     assert torch.equal(got, slab_gather_ref(keys, starts, 4, -1))
+    # 4-byte keys are the microbenchmark's form (kernel #6); other key
+    # types are refused
+    assert torch.equal(slab_gather(keys.to(torch.int32), starts, 4, -1),
+                       got.to(torch.int32))
     with pytest.raises(TypeError):
-        slab_gather(keys.to(torch.int32), starts, 4, -1)
+        slab_gather(keys.to(torch.float32), starts, 4, -1)
+    with pytest.raises(TypeError):
+        slab_gather(keys.to(torch.int16), starts, 4, -1)
     with pytest.raises(ValueError):
         slab_gather(keys, starts[None], 4, -1)
 

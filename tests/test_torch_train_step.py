@@ -231,6 +231,13 @@ def test_random_background_reproducible():
 def test_train_step_refuses_unported(what):
     cfg = dataclasses.replace(TConfig(), **{what: True})
     optims = GroupOptimizers(default_optimizers())
+    if what == "mixed_precision":
+        # ported since (the bf16 operand kernels): the step builds;
+        # tests/test_torch_mixed_precision.py runs it
+        step = make_train_step(cfg, optims, 32, 32, has_depth=True,
+                               device="cpu")
+        assert step.cfg.mixed_precision
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_train_step(cfg, optims, 32, 32, has_depth=True, device="cpu")
     if what == "use_bilateral_grid":

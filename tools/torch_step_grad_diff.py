@@ -13,13 +13,17 @@ and on each run's final state
 
 - compares the step's gradients and its rendered frame on the two paths;
 - counts the (tile, pixel, slot) pairs on which the two paths take another
-  branch of alpha's discontinuities (:func:`flipped_pairs`) on the slabs the
-  step gave its compositor, and holds the forward kernel against its plain
-  version on those slabs; where there are such pairs, their gaussians are
-  made transparent in a copy of the state and the paths compared again;
+  branch of alpha's discontinuities (``chip_smoke.flipped_pairs``) on the
+  slabs the step gave its compositor, and holds the forward kernel against
+  its plain version on those slabs; where there are such pairs, their
+  gaussians are made transparent in a copy of the state and the paths
+  compared again;
 - counts the pixels where the loss takes another branch of one of its kinks
-  on the two frames (``chip_smoke.loss_branch_pixels``), masks those pixels
-  out of the loss on both paths and compares again.
+  on the two frames, by kind (``chip_smoke.loss_branch_kinds``), masks
+  those pixels out of the loss on both paths and compares again.
+
+``chip_smoke.py``'s trainer phase runs the same two counts on its trained
+state.
 
 One JSON line per run. Needs CUDA and nvcc; imports no JAX.
 """
@@ -41,51 +45,6 @@ import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from qed_splatter_tpu_torch import cuda as qcuda  # noqa: E402
-
-
-@torch.no_grad()
-def flipped_pairs(means, conics, opac, counts, num_tiles_x):
-    """The (tile, pixel, slot) pairs on which the kernel path and the plain
-    path (``use_pallas=False``) take another branch of alpha's
-    discontinuities on the same slabs: kept or not (sigma >= 0 and
-    op e^-sigma > 1/255), and capped at 0.999 or not. The kernels and their
-    plain versions take the pixel offsets in tile-local coordinates,
-    ``ops.rasterize`` in global ones, so a pair within rounding of a
-    threshold can fall on either side. Both are evaluated here in plain
-    PyTorch, op for op as the two modules do, over the slots below each
-    tile's count. Returns (int64 [n, 3], op e^-sigma tile-local [n], global
-    [n])."""
-    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
-    from qed_splatter_tpu_torch.ops.rasterize import ALPHA_EPS, ALPHA_MAX
-
-    t, _, k = means.shape
-    pix = torch.arange(256, device=means.device)
-    where, a_local, a_global = [], [], []
-    group = max(1, (1 << 25) // (256 * k))
-    for s in range(0, t, group):
-        tid = torch.arange(s, min(s + group, t), device=means.device)
-        m, c, o = (x[s:s + group] for x in (means, conics, opac))
-        run = rp._slots_below(counts[s:s + group], k)
-        a_loc, keep_loc = rp._alpha_local(m, c, o, tid, num_tiles_x, 16,
-                                          run)[3:5]
-        px = ((tid % num_tiles_x) * 16).float()[:, None] + (
-            (pix % 16).float() + 0.5)[None, :]
-        py = ((tid // num_tiles_x) * 16).float()[:, None] + (
-            (pix // 16).float() + 0.5)[None, :]
-        dx = m[:, None, 0, :] - px[:, :, None]
-        dy = m[:, None, 1, :] - py[:, :, None]
-        sigma = (0.5 * (c[:, None, 0, :] * dx * dx + c[:, None, 2, :] * dy * dy)
-                 + c[:, None, 1, :] * dx * dy)
-        a_glob = o[:, None, 0, :] * torch.exp(-sigma)
-        keep_glob = (sigma >= 0.0) & (a_glob > ALPHA_EPS) & run[:, None, :]
-        differ = (keep_loc != keep_glob) | (keep_loc & (
-            (a_loc > ALPHA_MAX) != (a_glob > ALPHA_MAX)))
-        idx = differ.nonzero()
-        idx[:, 0] += s
-        where.append(idx)
-        a_local.append(a_loc[differ])
-        a_global.append(a_glob[differ])
-    return torch.cat(where), torch.cat(a_local), torch.cat(a_global)
 
 
 def without_gaussians(state, ids):
@@ -155,7 +114,8 @@ def one_run(n_alive, capacity, k_cap, n_steps, seed, run):
     means, conics, colors, opac, ntx = cap_c.args[:5]
     counts = cap_c.kwargs["tile_counts"]
     with torch.no_grad():
-        where, a_loc, a_glob = flipped_pairs(means, conics, opac, counts, ntx)
+        where, a_loc, a_glob = chip_smoke.flipped_pairs(means, conics, opac,
+                                                        counts, ntx)
         k_chunk = rp.K_CHUNK if k_cap > rp.K_CHUNK else 0
         out, acc, _, _ = rp.composite_tiles_fwd(means, conics, colors, opac,
                                                 ntx, 16, counts, k_chunk)
@@ -182,6 +142,9 @@ def one_run(n_alive, capacity, k_cap, n_steps, seed, run):
     # the loss's kinks
     differ = chip_smoke.loss_branch_pixels(out_a, out_b, batch)
     row["loss_branch_pixels"] = int(differ.sum())
+    row["loss_branch_by_kind"] = {
+        kind: int(m.sum()) for kind, m in
+        chip_smoke.loss_branch_kinds(out_a, out_b, batch).items()}
     d_rgb = [(o.rgb.detach() - batch["rgb"]) for o in (out_a, out_b)]
     d_dep = [(o.depth.detach() - batch["depth"])[..., 0]
              for o in (out_a, out_b)]
