@@ -23,7 +23,9 @@ Phases (any failure exits non-zero):
    plain versions on random slabs: K = 256 (two 128-slot blocks) with
    counts, K = 333 with counts of 0, 1, K and past K, 24-deep opaque stacks,
    and chunked at K = 2048; the forward's handoff (block offsets and sums
-   of the rounded logs, chunk transmittances) feeds the backward;
+   of the rounded logs, chunk transmittances) feeds the backward, which is
+   also held bit-equal to its build with logf itself (its inline copy of
+   logf's normal-range path gives T bit-equal to the forward's);
 3. scene A (the bench's canonical point): 131,072 capacity / 80,000 alive,
    SH degree 3, K = 256, 1296x840, 4 orbit cameras through
    ``render(train=False)``;
@@ -36,14 +38,18 @@ train B. scene B at K = 2048: 3 steps, the chunked backward;
 train A/B mixed. scenes A and B trained with ``mixed_precision`` (3 and 2
    steps; B takes the chunked mixed kernels): one step's gradients against
    the float32 step's within the bf16 envelope (5e-2 of each tensor's max),
-   both mixed kernels held and timed on that step's inputs;
+   both mixed kernels held and timed on that step's inputs, the share of
+   the mixed backward's work its warp cull leaves out, and the share that
+   lies behind T = 0 (which it does not skip), computed from that step's
+   slabs in plain torch;
 bench. ``python -m qed_splatter_tpu_torch.bench``'s three points
    (``bench.py``'s: 80k / K = 256, 288k / K = 1024, and 80k / K = 256 with
    ``mixed_precision``), shortened to 3 + 3 steps (2 + 2 at the dense
    point); prints the bench line;
 tools. the ported microbenchmarks ``tools/bench_gather.py`` (the window
    gather on 4-byte keys, kernel #6) and ``tools/bench_gather3.py`` (the
-   identity copy, kernel #7), each kernel bit-equal to its plain version;
+   identity copy, kernel #7), each kernel bit-equal to its plain version,
+   with the path the copy took at each shape (TMA bulk copies);
 trainer. the port's ``Trainer`` on a room RGB-D dataset written by
    ``testing.write_room_dataset`` (14 frames at 1296x840, 40,000 seed
    points): 400 steps, the first 200 at half resolution, refine every 50
@@ -94,6 +100,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -139,6 +146,9 @@ SOURCES = {"composite": f"{CSRC}/composite.cu",
            "slab_gather_i32": f"{CSRC}/slab_gather.cu",
            "copy_rows": f"{CSRC}/copy_rows.cu"}
 TRAIN_STEPS_WARM, TRAIN_STEPS_TIMED = 3, 20
+# composite_bwd.cu's mixed kernel built with logf itself, against which the
+# default build's inline copy of logf's normal-range path is held bit-equal
+LOGF_DEFINES = ("-DQED_BWD_MIX_LOG=0",)
 # the bench's three points, shortened: warm-up and timed steps of each
 BENCH_TIMED, BENCH_DENSE_TIMED = 3, 2
 
@@ -544,17 +554,71 @@ def check_bwd_mixed(slabs, gout, gacc, ntx, k_chunk, runs, counts, handoff,
                     label):
     """The mixed backward kernel, fed by the mixed forward kernel's handoff,
     against autograd of the plain mixed forward (each bf16 rounding taken
-    as the identity) within BWD_TOL of each channel's max."""
+    as the identity) within BWD_TOL of each channel's max, and bit-equal to
+    its build with logf itself (LOGF_DEFINES)."""
+    from qed_splatter_tpu_torch.cuda import CudaKernel
     from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
 
-    got = rp.composite_tiles_bwd_mixed(*slabs, gout, gacc, ntx, 16, k_chunk,
-                                       runs, counts, handoff)
+    args = (*slabs, gout, gacc, ntx, 16, k_chunk, runs, counts, handoff)
+    got = rp.composite_tiles_bwd_mixed(*args)
     want = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, ntx, 16,
                                       k_chunk=k_chunk, chunks_run=runs,
                                       tile_counts=counts, mixed=True)
     check(all(bool(torch.isfinite(g).all()) for g in got),
           f"{label}: gradients finite")
+    main = rp.COMPOSITE_BWD_MIXED
+    rp.COMPOSITE_BWD_MIXED = CudaKernel(main.source, main.symbol,
+                                        main.argtypes[:-1], LOGF_DEFINES)
+    try:
+        with_logf = rp.composite_tiles_bwd_mixed(*args)
+    finally:
+        rp.COMPOSITE_BWD_MIXED = main
+    check(all(torch.equal(a, b) for a, b in zip(got, with_logf)),
+          f"{label}: bit-equal to the build with logf itself (the inline "
+          "log is logf's, so T is the forward's)")
     return check_bwd(got, want, runs, k_chunk, label, counts)
+
+
+def mixed_bwd_shares(slabs, ntx, counts, runs, k_chunk, handoff):
+    """What ``composite_bwd.cu``'s mixed kernel leaves out on these inputs,
+    and what a skip behind T = 0 would, computed from the slabs and the
+    forward's handoff in plain torch (not counted in the kernel). A warp of
+    that kernel holds four whole rows of the tile, pixels [64 w, 64 w + 64).
+    Returns the share of needed (warp, slot) pairs culled before the exp
+    (no pixel of the warp has sigma < log(255 op) + 1e-4), the share of
+    (warp, block) pairs the tile runs that lie behind T = 0 (exp(offset) =
+    0 on all of the warp's pixels: every term of the block is an exact
+    zero), and the share of needed (warp, slot) pairs inside those
+    blocks."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    means, conics, _, opac = (x.detach() for x in slabs)
+    t, _, k = means.shape
+    n_run = rp.slots_run(t, k, k_chunk, runs, counts, "cuda")
+    nb = handoff.offsets.shape[1]
+    first = torch.arange(nb, device="cuda") * rp.MIX_BLOCK
+    blk_run = first[None] < n_run[:, None]                       # [T, nb]
+    dark = (torch.exp(handoff.offsets) == 0).view(t, nb, 4, 64).all(-1)
+    dark = dark & blk_run[..., None]                             # [T, nb, 4]
+    in_blk = (n_run[:, None] - first[None]).clamp(0, rp.MIX_BLOCK)
+    thr = torch.log(255.0 * opac[:, 0]) + 1e-4                   # [T, K]
+    slot = torch.arange(k, device="cuda")
+    culled = 0
+    step = max(1, (1 << 24) // (256 * k))
+    for s in range(0, t, step):
+        sl = slice(s, s + step)
+        tid = torch.arange(s, min(s + step, t), device="cuda")
+        dx, dy = rp._alpha_local(means[sl], conics[sl], opac[sl], tid, ntx,
+                                 16)[:2]
+        ca, cb, cc = (conics[sl, None, c, :] for c in range(3))
+        sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+        near = (sigma < thr[sl, None, :]).view(-1, 4, 64, k).any(2)
+        run = slot[None, :] < n_run[sl, None]                    # [Tc, K]
+        culled += int((~near & run[:, None, :]).sum())
+    needed = 4 * int(n_run.sum())
+    return (culled / max(needed, 1),
+            int(dark.sum()) / max(4 * int(blk_run.sum()), 1),
+            int((dark * in_blk[..., None]).sum()) / max(needed, 1))
 
 
 def phase_mixed_parity(gen):
@@ -1184,12 +1248,7 @@ def phase_train(label, n_alive, capacity, k_cap, n_warm, n_timed, seed,
         # and on a state made from the seed alone, the same from run to run:
         # the scene before any step, its scales spread (isotropic scales
         # give the rotations no gradient)
-        fresh = make_scene(n_alive, capacity, seed)
-        spread = np.random.default_rng(seed + 1).normal(
-            0, 0.4, tuple(fresh.scales.shape)).astype(np.float32)
-        fresh = init_train_state(fresh.replace(
-            scales=fresh.scales + torch.as_tensor(spread, device="cuda")),
-            optims, num_cameras=4)
+        fresh = spread_state(n_alive, capacity, seed, optims)
         hold(fresh, step.grads(fresh, batch, torch.Generator(
             device="cuda").manual_seed(seed_bg)), "before any step",
             FRESH_TOL)
@@ -1277,6 +1336,26 @@ def phase_train(label, n_alive, capacity, k_cap, n_warm, n_timed, seed,
     return entries, step_ms
 
 
+def spread_state(n_alive, capacity, seed, optims):
+    """The train state of :func:`make_scene`'s scene before any step, its
+    log-scales spread by N(0, 0.4) (isotropic scales give the rotations no
+    gradient): the state on which the mixed phase holds and times its
+    kernels, the same from run to run."""
+    from qed_splatter_tpu_torch.engine.train_step import init_train_state
+
+    fresh = make_scene(n_alive, capacity, seed)
+    spread = np.random.default_rng(seed + 1).normal(
+        0, 0.4, tuple(fresh.scales.shape)).astype(np.float32)
+    return init_train_state(fresh.replace(
+        scales=fresh.scales + torch.as_tensor(spread, device="cuda")),
+        optims, num_cameras=4)
+
+
+def background_generator(seed):
+    """The random background's generator of that held step."""
+    return torch.Generator(device="cuda").manual_seed(seed + 29)
+
+
 def phase_train_mixed(label, n_alive, capacity, k_cap, n_steps, seed):
     """``mixed_precision`` training on a scene: ``n_steps`` steps of
     ``make_train_step`` through the bf16 operand kernels (the main path of
@@ -1345,18 +1424,11 @@ def phase_train_mixed(label, n_alive, capacity, k_cap, n_steps, seed):
     # --- one step's gradients against the float32 step's, on the scene
     #     before any step with its scales spread (isotropic scales give the
     #     rotations no gradient), the same state from run to run
-    seed_bg = seed + 29
-
     def bg():
-        return torch.Generator(device="cuda").manual_seed(seed_bg)
+        return background_generator(seed)
 
     del state
-    fresh = make_scene(n_alive, capacity, seed)
-    spread = np.random.default_rng(seed + 1).normal(
-        0, 0.4, tuple(fresh.scales.shape)).astype(np.float32)
-    state = init_train_state(fresh.replace(
-        scales=fresh.scales + torch.as_tensor(spread, device="cuda")),
-        optims, num_cameras=4)
+    state = spread_state(n_alive, capacity, seed, optims)
     with Capture(rp, "composite_tiles_fwd_mixed") as cap_f, \
             Capture(rp, "composite_tiles_bwd_mixed") as cap_b:
         gm = step.grads(state, batch, bg())
@@ -1397,6 +1469,12 @@ def phase_train_mixed(label, n_alive, capacity, k_cap, n_steps, seed):
     err_b = check_bwd_mixed(slabs, gout, gacc, ntx, k_chunk, runs, counts,
                             bargs[11], f"composite_bwd mixed on the step's "
                             f"slabs (T={t}, K={k})")
+    culled, dark, in_dark = mixed_bwd_shares(slabs, ntx, counts, runs,
+                                             k_chunk, h)
+    print(f"  composite_bwd mixed on the step's slabs: {culled:.4f} of the "
+          f"needed (warp, slot) pairs culled before the exp; {dark:.4f} "
+          f"of the (warp, block) pairs run lie behind T = 0, holding "
+          f"{in_dark:.4f} of the needed pairs")
     ms_f = graph_ms(lambda: rp.composite_tiles_fwd_mixed(
         *slabs, ntx, ts, counts, k_chunk, None, True), 20)
     plain_f = cuda_ms(lambda: rp.composite_tiles_ref(
@@ -1438,7 +1516,10 @@ def phase_train_mixed(label, n_alive, capacity, k_cap, n_steps, seed):
     ]
     entries[0]["vs_float32_step"] = {"grad_rel_max": max(rel.values()),
                                      "loss_rel": e_loss}
-    del state, gm, params, fresh, slabs, fargs, bargs, gout, gacc, h
+    entries[1]["work_shares"] = {"culled_pairs": culled,
+                                 "blocks_behind_t0": dark,
+                                 "pairs_behind_t0": in_dark}
+    del state, gm, params, slabs, fargs, bargs, gout, gacc, h
     torch.cuda.empty_cache()
     return entries, statistics.median(times)
 
@@ -1530,26 +1611,39 @@ def phase_tools():
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = {}
+    paths = {}
     for label, n in (("327k", bench_gather3.N_TAB),
                      ("4p4M", bench_gather3.M_IDX)):
         x = torch.rand((n, bench_gather3.C), generator=gen, device="cuda")
+        seen = dict(cr.COPY_ROWS.variant_launches)
         y = cr.copy_rows(x)
+        torch.cuda.synchronize()
+        took = [p for p, v in cr.COPY_ROWS.variant_launches.items()
+                if v != seen.get(p, 0)]
+        paths[label] = took[0] if len(took) == 1 else None
         check(torch.equal(y, cr.copy_rows_ref(x)) and y.data_ptr()
               != x.data_ptr(), f"copy_rows [{n}, {bench_gather3.C}] "
-              "bit-equal to its plain version")
+              f"bit-equal to its plain version (path {paths[label]})")
+        check(paths[label] == "bulk", f"copy_rows [{n}, {bench_gather3.C}] "
+              "took the bulk path")
         b7 = 2 * x.numel() * 4 / PEAK_BYTES_PER_S * 1e3
-        rows[label] = (t7[f"copy_{label}"], t7[f"copy_{label}_plain"],
-                       t7[f"copy_{label}_library"], b7)
-        print(f"  copy_rows {label}: {rows[label][0]:.4f} ms (plain "
-              f"{rows[label][1]:.4f}, Tensor.copy_ {rows[label][2]:.4f}), "
+        rows[label] = {"ms": t7[f"copy_{label}"],
+                       "plain_ms": t7[f"copy_{label}_plain"],
+                       "library_ms": t7[f"copy_{label}_library"],
+                       "bound_ms": b7, "path": paths[label],
+                       "into_ms": t7[f"copy_{label}_into"]}
+        r = rows[label]
+        print(f"  copy_rows {label}: path {r['path']}, {r['ms']:.4f} ms "
+              f"(plain {r['plain_ms']:.4f}); into a preallocated tensor "
+              f"{r['into_ms']:.4f} ms, Tensor.copy_ {r['library_ms']:.4f}; "
               f"bound {b7:.4f} ms by bytes")
         del x, y
-    ms, plain, lib, b7 = rows["4p4M"]
+    r = rows["4p4M"]
     entries.append(entry("copy_rows", "tools/bench_gather3, [4396032, 10]",
-                         l7, 0.0, ms, plain, lib, b7, 0.0))
-    ms, plain, lib, b7 = rows["327k"]
-    entries[-1]["at_327680_rows"] = {"ms": ms, "plain_ms": plain,
-                                     "library_ms": lib, "bound_ms": b7}
+                         l7, 0.0, r["ms"], r["plain_ms"], r["library_ms"],
+                         r["bound_ms"], 0.0))
+    entries[-1].update(path=r["path"], into_ms=r["into_ms"])
+    entries[-1]["at_327680_rows"] = rows["327k"]
     torch.cuda.empty_cache()
     return entries
 
@@ -1875,8 +1969,12 @@ def main() -> int:
     from qed_splatter_tpu_torch import cuda as qcuda
 
     print("phase 1: build", flush=True)
-    secs = qcuda.build(qcuda.sources())
-    print(f"  built {qcuda.sources()} in {secs:.2f} s")
+    with ThreadPoolExecutor(2) as pool:     # every nvcc at once
+        jobs = [pool.submit(qcuda.build, qcuda.sources()),
+                pool.submit(qcuda.build, ["composite_bwd"], LOGF_DEFINES)]
+        secs = max(j.result() for j in jobs)
+    print(f"  built {qcuda.sources()} and composite_bwd {LOGF_DEFINES} in "
+          f"{secs:.2f} s")
     for name, log in qcuda.BUILD_LOGS.items():
         for line in log.splitlines():
             if "Compiling entry function" in line:

@@ -51,14 +51,15 @@ def _nvcc() -> str:
 def _lib_path(name: str, defines: Sequence[str] = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     flags = " ".join((*NVCC_FLAGS, *defines))
-    digest = hashlib.sha256(src + flags.encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{Path(name).name}-{digest}.so"
 
 
 def build(names: Sequence[str], defines: Sequence[str] = ()) -> float:
     """Compile the named sources that are not built yet, one ``nvcc`` per
-    source, all started together. ``defines`` (``-DNAME=value`` flags) select
-    a tuning variant of a source. Returns the wall seconds spent."""
+    source, all started together. A name is a path under ``csrc/`` without
+    ``.cu``. ``defines`` (``-DNAME=value`` flags) select a tuning variant of
+    a source. Returns the wall seconds spent."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs: List[tuple] = []

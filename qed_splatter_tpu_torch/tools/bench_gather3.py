@@ -12,7 +12,8 @@ does not arise here; the copy (``csrc/copy_rows.cu``, the port of the JAX
 tool's Pallas kernel) is timed in the same placements anyway, under the
 same names, each followed by the tool's consumer (a sum over the rows), and
 on its own beside its plain version (``clone``) and ``Tensor.copy_`` into a
-preallocated tensor.
+preallocated tensor; the kernel is also timed into that preallocated
+tensor (``_into``).
 
 Times are device milliseconds per call from ``utils/microbench.py``. Holds
 the GPU lock; prints one line per placement and ONE JSON dict at the end.
@@ -77,13 +78,16 @@ def run(device="cuda", n_calls=15, log=print, sizes=(N_TAB, M_IDX)) -> dict:
     t("gather_sorted_plain", lambda i: consume(tab[i]), (idx_sorted,))
     t("gather_sorted_pallas_both", lambda i: consume(cp(cp(tab)[i])),
       (idx_sorted,))
-    # the copy alone at both sizes: the kernel, its plain version, the
-    # library's copy into a preallocated tensor
+    # the copy alone at both sizes: the kernel into a new tensor, its plain
+    # version; the library's copy into a preallocated tensor, and the kernel
+    # into the same tensor (at 327k rows source and destination both stay
+    # in L2)
     for label, x in (("327k", tab), ("4p4M", big)):
         dst = torch.empty_like(x)
         t(f"copy_{label}", cp, (x,))
         t(f"copy_{label}_plain", copy_rows_ref, (x,))
         t(f"copy_{label}_library", lambda a, b=dst: b.copy_(a), (x,))
+        t(f"copy_{label}_into", lambda a, b=dst: cp(a, out=b), (x,))
     return times
 
 

@@ -416,14 +416,18 @@ def test_trainer_on_the_card_grows_and_launches_every_kernel(gen, tmp_path):
     assert (trainer.run_dir / "splat.ply").exists()
 
 
-@pytest.mark.parametrize("d,k,chunked", [(3, 128, False), (4, 256, False),
-                                         (3, 333, False), (4, 2304, True)])
-def test_mixed_kernels_match_plain(gen, d, k, chunked):
+@pytest.mark.parametrize("d,k,chunked,stack", [
+    (3, 128, False, 0), (4, 256, False, 0), (3, 333, False, 0),
+    (4, 2304, True, 0), (4, 256, False, 20), (4, 2304, True, 20)])
+def test_mixed_kernels_match_plain(gen, d, k, chunked, stack):
     """The mixed_precision (bf16 operand) forward and backward kernels
     against their plain versions: the forward within TOL with the block
     sums of its handoff equal, the backward, fed by that handoff, against
     autograd of the plain mixed forward; tile counts below K, exact zeros
-    past them."""
+    past them. ``stack``: a third of the tiles start with that many slots of
+    alpha 0.999 over the whole tile, so exp(E) underflows to 0 inside the
+    first block (about 16 slots) and every term behind it is an exact zero:
+    exact zeros from slot 17 on."""
     from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
 
     t, ntx = 60, 10
@@ -432,6 +436,10 @@ def test_mixed_kernels_match_plain(gen, d, k, chunked):
     counts = torch.randint(0, k + 1, (t,), generator=gen, device="cuda",
                            dtype=torch.int32)
     counts[:3] = torch.tensor([0, 1, k], device="cuda", dtype=torch.int32)
+    stacked = slice(3, 23)
+    if stack:
+        _stack(slabs, stacked, stack, ntx)
+        counts[stacked] = k
     k_chunk = rp.K_CHUNK if chunked else 0
     runs = torch.empty(t, dtype=torch.int32, device="cuda")
     runs_ref = torch.empty_like(runs)
@@ -462,6 +470,11 @@ def test_mixed_kernels_match_plain(gen, d, k, chunked):
     past = torch.arange(k, device="cuda")[None, None, :] >= counts[
         :, None, None].long()
     assert all(not bool(torch.where(past, g, 0.0).any()) for g in got)
+    if stack:
+        assert bool((torch.exp(h.offsets[stacked, 1]) == 0).all())
+        for g, w in zip(got, want):
+            assert not bool(w[stacked, :, 17:].any())
+            assert not bool(g[stacked, :, 17:].any())
 
 
 def test_mixed_train_step_on_the_card(gen):
@@ -533,14 +546,19 @@ def test_slab_gather_4_byte_kernel_exact(gen):
 
 @pytest.mark.parametrize("shape,offset", [((327_680, 10), 0),
                                           ((4_396_032, 10), 0),
-                                          ((1001, 3), 1)])
+                                          ((1001, 3), 1), ((1001, 3), 0),
+                                          ((100_003,), 2), ((3,), 3)])
 def test_copy_rows_kernel_exact(gen, shape, offset):
-    """Kernel #7's port: bit-equal to its plain version, 16-byte accesses or
-    (a misaligned view) one float at a time."""
-    from qed_splatter_tpu_torch.ops.copy_rows import COPY_ROWS, copy_rows, \
-        copy_rows_ref
+    """Kernel #7: bit-equal to its plain version into a new tensor, and into
+    a view at each distance from a 16-byte boundary: the source's (a head, a
+    bulk body, a tail) or another (one float at a time). One launch per
+    copy, counted under the path its plan names; nothing outside the view
+    is written. (1001, 3) is smaller than one bulk stage, (3,) than one
+    16-byte vector."""
+    from qed_splatter_tpu_torch.ops.copy_rows import COPY_ROWS, copy_plan, \
+        copy_rows, copy_rows_ref
 
-    n = shape[0] * shape[1]
+    n = int(np.prod(shape))
     x = torch.rand(n + offset, generator=gen, device="cuda")[offset:].view(
         shape)
     before = COPY_ROWS.launches
@@ -548,6 +566,19 @@ def test_copy_rows_kernel_exact(gen, shape, offset):
     torch.cuda.synchronize()
     assert COPY_ROWS.launches == before + 1
     assert torch.equal(y, copy_rows_ref(x)) and y.data_ptr() != x.data_ptr()
+    for dst_off in range(4):
+        buf = torch.full((n + 8,), float("nan"), device="cuda")
+        out = buf[dst_off:dst_off + n].view(shape)
+        plan = copy_plan(x.data_ptr(), out.data_ptr(), n)
+        seen = dict(COPY_ROWS.variant_launches)
+        assert copy_rows(x, out=out) is out
+        torch.cuda.synchronize()
+        assert torch.equal(out, x), (dst_off, plan)
+        assert bool(buf[:dst_off].isnan().all())
+        assert bool(buf[dst_off + n:].isnan().all())
+        assert COPY_ROWS.variant_launches[plan.path] == seen.get(
+            plan.path, 0) + 1
+        assert (plan.path == "scalar") == (dst_off != offset or n < 4)
 
 
 def test_microbench_times_a_graph_and_an_eager_loop(gen):

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from qed_splatter_tpu_torch.ops import tiles
-from qed_splatter_tpu_torch.ops.copy_rows import copy_rows, copy_rows_ref
+from qed_splatter_tpu_torch.ops.copy_rows import CopyPlan, copy_plan, \
+    copy_rows, copy_rows_ref
 from qed_splatter_tpu_torch.tools import bench_gather, bench_gather3
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -82,6 +83,47 @@ def test_copy_rows_is_the_identity(shape):
         copy_rows(x.double())
 
 
+@pytest.mark.parametrize("dst_off", [0, 4, 8, 12])
+@pytest.mark.parametrize("src_off", [0, 4, 8, 12])
+def test_copy_plan_splits_every_alignment_class(src_off, dst_off):
+    """#7's split of [0, n) into a head up to the first 16-byte boundary, a
+    body of whole 16-byte vectors aligned in both arrays, and a tail, for
+    each distance of source and destination from a 16-byte boundary: sizes
+    below one vector, n = 0, and the tool's sizes. Pointers at different
+    distances have no common aligned body: one float at a time."""
+    src, dst = (1 << 20) + src_off, (7 << 20) + dst_off
+    for n in (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 1001, 3_276_800, 43_960_320):
+        plan = copy_plan(src, dst, n)
+        assert plan.head + plan.body + plan.tail == n
+        if n == 0:
+            assert plan == CopyPlan("none", 0, 0, 0)
+            continue
+        if src_off != dst_off:
+            assert plan == CopyPlan("scalar", n, 0, 0)
+            continue
+        head = min(n, (16 - src_off) % 16 // 4)
+        if n - head < 4:      # below one vector past the head
+            assert plan == CopyPlan("scalar", n, 0, 0)
+            continue
+        assert plan.head == head and plan.body % 4 == 0 and plan.tail < 4
+        assert (src + 4 * head) % 16 == 0 and (dst + 4 * head) % 16 == 0
+        assert plan.path == "bulk"
+    with pytest.raises(ValueError):
+        copy_plan(src + 2, dst, 8)
+
+
+def test_copy_rows_into_a_given_tensor():
+    """``out`` receives the copy (the CPU takes the plain version); a
+    tensor of another shape or type is refused."""
+    x = torch.arange(30, dtype=torch.float32).view(3, 10)
+    out = torch.empty_like(x)
+    assert copy_rows(x, out=out) is out and torch.equal(out, x)
+    for bad in (torch.empty(30), torch.empty_like(x, dtype=torch.float64),
+                torch.empty(10, 3).t()):
+        with pytest.raises(ValueError, match="out must be"):
+            copy_rows(x, out=bad)
+
+
 @pytest.mark.parametrize("tool,port", [
     ("tools/bench_gather.py", bench_gather),
     ("tools/bench_gather3.py", bench_gather3)])
@@ -97,7 +139,7 @@ def test_tools_time_every_formulation_of_the_jax_tools(tool, port):
     extra = ({"slab_pallas_dma_plain", "slab_pallas_dma_library"}
              if port is bench_gather else
              {f"copy_{s}{x}" for s in ("327k", "4p4M")
-              for x in ("", "_plain", "_library")})
+              for x in ("", "_plain", "_library", "_into")})
     assert set(times) == set(want) | extra
 
 

@@ -2,7 +2,7 @@
 """Time tuning variants of the PyTorch port's CUDA kernels on one GPU.
 
     python3 tools/torch_kernel_variants.py [--seed 0] [--out FILE.json]
-                                           [--one-sweep]
+                                           [--one-sweep] [--kernels LIST]
 
 The kernels take their tuning constants from ``-D`` flags
 (``csrc/composite.cu``: ``QED_FWD_PIX`` pixels per thread, ``QED_FWD_BATCH``
@@ -10,15 +10,29 @@ slots staged at a time, ``QED_FWD_CULL`` the warp cull before the exp,
 ``QED_FWD_FASTEXP`` ``__expf`` for ``expf``, ``QED_FWD_UNROLL`` slots per
 trip of the depth loop; ``csrc/composite_bwd.cu``: ``QED_BWD_PIX`` pixels
 per thread, ``QED_BWD_GROUP`` slots per warp reduction, ``QED_BWD_FASTDIV``;
-``csrc/slab_gather.cu``: ``QED_SLAB_PAIRS`` 16-byte pairs per thread). This
-script builds each variant beside the default build, runs it on the inputs
-of one training step of ``chip_smoke.py``'s scene A (80k alive, K=256) and
-scene B (288k alive, K=2048) at 1296x840, holds it against the default
-build's result, and prints one JSON line per variant with its CUDA-event
-time. The forward is timed without and with the handoff to the backward.
-Its ``__expf`` variant is measured only: its line counts the pixels that an
-alpha mask which flips against ``expf`` moves by more than rounding (1e-4)
-on the step's slabs.
+``csrc/slab_gather.cu``: ``QED_SLAB_PAIRS`` 16-byte pairs per thread). The
+mixed_precision backward (``composite_bwd.cu``'s
+``composite_bwd_mixed_kernel``) has no tuning flags but
+``QED_BWD_MIX_LOG=0`` (logf itself): its variants are the build with one
+step of its design undone, each written here as a patch of the source's text
+(MIX_VARIANTS; a patch whose text is not in the source exactly once fails),
+built from a copy under ``csrc/build/variants/``. This script builds each
+variant beside the default build, runs it on the inputs of one training step
+of ``chip_smoke.py``'s scene A (80k alive, K=256) and scene B (288k alive,
+K=2048) at 1296x840 (float32; the mixed backward on the state
+``chip_smoke.py``'s mixed phase holds it on, beside the float32 backward on
+the same slabs), holds it against the default build's result (and the mixed
+backward against its plain version), and prints one JSON line per variant
+with its CUDA-event time and, where nvcc built it in this run, the
+registers, spills and blocks per SM of its kernels. The forward is timed
+without and with the handoff to the backward. Its ``__expf`` variant is
+measured only: its line counts the pixels that an alpha mask which flips
+against ``expf`` moves by more than rounding (1e-4) on the step's slabs. The
+identity copy (#7) is timed by CUDA-graph replays at the copy tool's two
+shapes ([327,680, 10] and [4,396,032, 10] float32), into a new tensor and
+into a preallocated one, beside ``Tensor.copy_`` and ``clone``.
+``--kernels`` (a comma list of composite, composite_bwd,
+composite_bwd_mixed, slab_gather, copy_rows) times only those.
 
 ``--one-sweep`` measures instead why the backward carries what lies behind
 each slot back to front and takes T from the forward, not R_k = S -
@@ -36,7 +50,9 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -61,6 +77,28 @@ FWD_VARIANTS = [(2, 256, 1, 0, 4), (1, 256, 1, 0, 4), (4, 256, 1, 0, 4),
 BWD_VARIANTS = [(2, 4, 0), (1, 4, 0), (1, 8, 0), (2, 2, 0), (2, 8, 0),
                 (4, 2, 0), (4, 4, 0), (2, 4, 1)]
 SLAB_VARIANTS = [4, 1, 2, 8]
+# the mixed backward: (label, patches of composite_bwd.cu's text as (old,
+# new), defines); the default build first, then each step of the design
+# undone, then other shapes
+_MIX_BLOCKS = ("__launch_bounds__(kThreads, kMixMinBlocks)",
+               "__launch_bounds__(kThreads)")
+_MIX_GROUP = ("constexpr int kGroupM = 4;", "constexpr int kGroupM = 2;")
+MIX_VARIANTS = [
+    ("default", (), ()),
+    ("no warp cull before the exp",
+     (("bool on = __any_sync(kFull, near);", "bool on = true;"),), ()),
+    ("the chunked instantiation for unchunked tiles too",
+     (("k_chunk > 0 ? composite_bwd_mixed_kernel<D, true>",
+       "true ? composite_bwd_mixed_kernel<D, true>"),), ()),
+    ("the exact division",
+     (("behind[q] * rcp_approx(om)", "__fdiv_rn(behind[q], om)"),), ()),
+    ("logf itself", (), ("-DQED_BWD_MIX_LOG=0",)),
+    ("no bound on the registers", (_MIX_BLOCKS,), ()),
+    ("two slots a warp reduction", (_MIX_GROUP,), ()),
+    ("four pixels a thread", (), ("-DQED_BWD_PIX=4",)),
+]
+KERNELS = ("composite", "composite_bwd", "composite_bwd_mixed",
+           "slab_gather", "copy_rows")
 
 
 def fwd_defines(pix, batch, cull, fastexp, unroll):
@@ -78,9 +116,32 @@ def slab_defines(pairs):
     return (f"-DQED_SLAB_PAIRS={pairs}",)
 
 
-def step_inputs(n_alive, capacity, k_cap, seed):
+def patched_source(name, patches):
+    """The name (relative to ``csrc/``, as :class:`CudaKernel` takes it) of
+    a copy of ``csrc/<name>.cu`` with each ``(old, new)`` patch applied; the
+    source itself without patches."""
+    if not patches:
+        return name
+    text = (qcuda.CSRC / f"{name}.cu").read_text()
+    for old, new in patches:
+        if text.count(old) != 1:
+            raise ValueError(f"{name}.cu holds {old!r} {text.count(old)} "
+                             "times, not once")
+        text = text.replace(old, new)
+    out_dir = qcuda.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    digest = hashlib.sha256(text.encode()).hexdigest()[:12]
+    (out_dir / f"{name}-{digest}.cu").write_text(text)
+    return f"build/variants/{name}-{digest}"
+
+
+def step_inputs(n_alive, capacity, k_cap, seed, mixed=False):
     """The arguments one training step gives the forward kernel, the
-    backward kernel and the window gather, captured from the step itself."""
+    backward kernel and the window gather, captured from the step itself;
+    ``mixed``: the step of ``mixed_precision`` on the state on which
+    ``chip_smoke.py``'s mixed phase holds its kernels, whose backward's
+    arguments (those of ``composite_tiles_bwd_mixed``) are returned
+    alone."""
     from qed_splatter_tpu_torch.configs import ModelConfig, \
         default_optimizers
     from qed_splatter_tpu_torch.engine.optim import GroupOptimizers
@@ -92,12 +153,20 @@ def step_inputs(n_alive, capacity, k_cap, seed):
     params = chip_smoke.make_scene(n_alive, capacity, seed)
     batch = chip_smoke.train_batch(np.random.default_rng(seed))
     cfg = ModelConfig(camera_opt_mode="SO3xR3", max_per_tile=k_cap,
-                      background_color="random")
+                      background_color="random", mixed_precision=mixed)
     optims = GroupOptimizers(default_optimizers())
     state = init_train_state(params, optims, num_cameras=4)
     step = make_train_step(cfg, optims, chip_smoke.W, chip_smoke.H,
                            has_depth=True)
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    if mixed:           # the state chip_smoke.py's mixed phase times on
+        del state
+        state = chip_smoke.spread_state(n_alive, capacity, seed, optims)
+        with chip_smoke.Capture(rp, "composite_tiles_bwd_mixed") as cap_m:
+            step.grads(state, batch, chip_smoke.background_generator(seed))
+        torch.cuda.synchronize()
+        return [x.detach() if torch.is_tensor(x) else x
+                for x in cap_m.args]
     with chip_smoke.Capture(rp, "composite_tiles_bwd") as cap_b, \
             chip_smoke.Capture(rp, "composite_tiles_fwd") as cap_f, \
             chip_smoke.Capture(tiles, "slab_ranks") as cap_g:
@@ -137,20 +206,76 @@ def run_bwd(kernel, args):
     return grads
 
 
-def resources(build):
-    """Registers and spill bytes of the D = 4 kernels of one build (eval
-    first, then training), from nvcc's -Xptxas -v output; empty when the
-    build came from the cache."""
-    regs, spills, take = [], [], False
-    for line in qcuda.BUILD_LOGS.get(build, "").splitlines():
+def run_bwd_mixed(kernel, args):
+    """One launch of a build of the mixed backward on the arguments of
+    ``composite_tiles_bwd_mixed``."""
+    slabs, gout, gacc = args[:4], args[4], args[5]
+    ntx, _, k_chunk, runs, counts, handoff = args[6:12]
+    t, d, k = slabs[2].shape
+    ins = [x.contiguous() for x in (*slabs, gout, gacc, runs, counts,
+                                    *handoff)]
+    grads = [torch.empty_like(x) for x in ins[:4]]
+    kernel(*(ptr(x) for x in ins), *(ptr(x) for x in grads), t, k, d, ntx,
+           k_chunk)
+    return grads
+
+
+def kernel_names(symbols):
+    """``name<template args>`` of each mangled kernel symbol, demangled by
+    binutils' c++filt."""
+    lines = subprocess.run(["c++filt"], input="\n".join(symbols),
+                           capture_output=True, text=True, timeout=60,
+                           check=True).stdout.splitlines()
+    return [re.search(r"(\w+(?:<[^()]*>)?)\(", line).group(1)
+            for line in lines]
+
+
+def kernel_resources(build):
+    """{kernel<template args>: registers, spill store bytes, static shared
+    memory and blocks per SM} of one build, from nvcc's -Xptxas -v output;
+    empty when the build came from the cache. Blocks per SM: the least of
+    the register file (65,536, allocated 256 a warp at a time), 64 warps,
+    32 blocks and 228 KB of shared memory (1 KB reserved per block), at 128
+    threads a block (256 for the copy's scalar kernel, 32 for its bulk
+    kernel with 64 KB of dynamic shared memory)."""
+    log = qcuda.BUILD_LOGS.get(build, "").splitlines()
+    symbols = [line.split("'")[1] for line in log
+               if "Compiling entry function" in line]
+    names = iter(kernel_names(symbols) if symbols else ())
+    out, name = {}, None
+    for line in log:
         if "Compiling entry function" in line:
-            take = "ILi4E" in line
-        elif take and "spill stores" in line:
-            spills.append(int(line.split("stack frame,")[1].split()[0]))
-        elif take and "registers" in line:
-            regs.append(int(line.split("Used")[1].split()[0]))
-    return {"registers_d4": regs, "spill_store_bytes_d4": spills} if regs \
-        else {}
+            name = next(names)
+            out[name] = {}
+        elif name and "spill stores" in line:
+            out[name]["spill_store_bytes"] = int(
+                line.split("stack frame,")[1].split()[0])
+        elif name and "Used" in line and "registers" in line:
+            regs = int(line.split("Used")[1].split()[0])
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["registers"] = regs
+            out[name]["smem_bytes"] = int(smem.group(1)) if smem else 0
+    for name, r in out.items():
+        if "registers" not in r:
+            continue
+        threads = 128
+        dyn = 0
+        if name.startswith("copy_bulk"):
+            threads, dyn = 32, 4 * 16384
+        elif name.startswith("copy_"):
+            threads = 256
+        warps = threads // 32
+        per_warp = -(-r["registers"] * 32 // 256) * 256
+        by_smem = (228 * 1024) // (r["smem_bytes"] + dyn + 1024)
+        r["blocks_per_sm"] = min(65536 // (per_warp * warps), 64 // warps,
+                                 32, by_smem)
+    return out
+
+
+def d4_resources(build):
+    """:func:`kernel_resources` of the D = 4 kernels of one build."""
+    return {name: r for name, r in kernel_resources(build).items()
+            if name.split("<")[1].startswith("4")}
 
 
 def fwd_rows(label, f_args):
@@ -171,7 +296,7 @@ def fwd_rows(label, f_args):
         row = dict(zip(("pix", "batch", "cull", "fastexp", "unroll"),
                        variant))
         row = {"kernel": "composite", "scene": label, **row,
-               **resources(" ".join(("composite", *defines)))}
+               "resources": d4_resources(" ".join(("composite", *defines)))}
         row["ms"] = chip_smoke.cuda_ms(lambda: run_fwd(kern, f_args), 20)
         row["ms_with_handoff"] = chip_smoke.cuda_ms(
             lambda: run_fwd(kern, f_args, tail=True), 20)
@@ -185,6 +310,86 @@ def fwd_rows(label, f_args):
         rows.append(row)
     for row in rows:
         print(json.dumps(row), flush=True)
+    return rows
+
+
+def mixed_rows(label, m_args):
+    """One row per variant of the mixed backward on one mixed step's own
+    inputs, held against the default build and the plain version."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    def kernel(patches, defines):
+        return CudaKernel(patched_source("composite_bwd", patches),
+                          rp.COMPOSITE_BWD_MIXED.symbol,
+                          rp.COMPOSITE_BWD_MIXED.argtypes[:-1], defines)
+
+    slabs, gout, gacc = m_args[:4], m_args[4], m_args[5]
+    ntx, ts, k_chunk, runs, counts = m_args[6:11]
+    want = run_bwd_mixed(kernel(*MIX_VARIANTS[0][1:]), m_args)
+    plain = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, ntx, ts,
+                                       k_chunk=k_chunk, chunks_run=runs,
+                                       tile_counts=counts, mixed=True)
+    rows = []
+    for variant, patches, defines in MIX_VARIANTS:
+        kern = kernel(patches, defines)
+        got = run_bwd_mixed(kern, m_args)
+        row = {"kernel": "composite_bwd_mixed", "scene": label,
+               "variant": variant}
+        row["ms"] = chip_smoke.cuda_ms(lambda: run_bwd_mixed(kern, m_args),
+                                       20)
+        row["err_vs_default"] = max(chip_smoke.bwd_channel_errs(got, want))
+        row["exact_vs_default"] = all(torch.equal(g, w)
+                                      for g, w in zip(got, want))
+        row["err_vs_plain"] = max(chip_smoke.bwd_channel_errs(got, plain))
+        row["resources"] = {
+            name: r for name, r in kernel_resources(
+                " ".join((kern.source, *defines))).items()
+            if name.startswith("composite_bwd_mixed")}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    # the float32 backward on the same slabs, fed by the float32 forward
+    runs32 = torch.empty_like(runs)
+    t_last, cut = rp.composite_tiles_fwd(*slabs, ntx, ts, counts, k_chunk,
+                                         runs32, True)[2:]
+    f32_args = (*slabs, gout, gacc, ntx, ts, k_chunk, runs32, counts,
+                t_last, cut)
+    row = {"kernel": "composite_bwd (float32, the same slabs)",
+           "scene": label,
+           "ms": chip_smoke.cuda_ms(lambda: rp.composite_tiles_bwd(
+               *f32_args), 20)}
+    rows.append(row)
+    print(json.dumps(row), flush=True)
+    return rows
+
+
+def copy_rows_rows():
+    """The identity copy at the copy tool's two shapes, by CUDA-graph
+    replays: into a new tensor per call and into one preallocated tensor,
+    beside ``Tensor.copy_`` into that tensor and ``clone``."""
+    from qed_splatter_tpu_torch.ops import copy_rows as cr
+    from qed_splatter_tpu_torch.tools import bench_gather3 as bg3
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for n in (bg3.N_TAB, bg3.M_IDX):
+        x = torch.rand((n, bg3.C), generator=gen, device="cuda")
+        dst = torch.empty_like(x)
+        row = {"kernel": "copy_rows", "shape": [n, bg3.C],
+               "path": cr.copy_plan(x.data_ptr(), dst.data_ptr(),
+                                    x.numel()).path,
+               "exact": torch.equal(cr.copy_rows(x), x),
+               "ms": chip_smoke.graph_ms(lambda: cr.copy_rows(x), 15),
+               "ms_into": chip_smoke.graph_ms(
+                   lambda: cr.copy_rows(x, out=dst), 15),
+               "library_ms_into": chip_smoke.graph_ms(
+                   lambda: dst.copy_(x), 15),
+               "clone_ms": chip_smoke.graph_ms(lambda: x.clone(), 15),
+               "bound_ms": 2 * x.numel() * 4
+               / chip_smoke.PEAK_BYTES_PER_S * 1e3,
+               "resources": kernel_resources("copy_rows")}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del x, dst
     return rows
 
 
@@ -240,7 +445,12 @@ def main() -> int:
     ap.add_argument("--out", default="")
     ap.add_argument("--one-sweep", action="store_true",
                     help="measure the one-sweep form's error instead")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma list of the kernels whose variants to time")
     args = ap.parse_args()
+    want_k = set(args.kernels.split(","))
+    if not want_k <= set(KERNELS):
+        ap.error(f"unknown kernels {sorted(want_k - set(KERNELS))}")
     if not torch.cuda.is_available():
         print("error: CUDA is not available", file=sys.stderr)
         return 2
@@ -248,11 +458,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     if not args.one_sweep:
-        jobs = [("composite", fwd_defines(*v)) for v in FWD_VARIANTS] + [
-            ("composite_bwd", bwd_defines(*v)) for v in BWD_VARIANTS] + [
-            ("slab_gather", slab_defines(v)) for v in SLAB_VARIANTS]
+        variants = {
+            "composite": ("composite", fwd_defines, FWD_VARIANTS),
+            "composite_bwd": ("composite_bwd", bwd_defines, BWD_VARIANTS),
+            "slab_gather": ("slab_gather", slab_defines, SLAB_VARIANTS)}
+        todo = [(src, defines(*v) if isinstance(v, tuple) else defines(v))
+                for name, (src, defines, vs) in variants.items()
+                if name in want_k for v in vs]
+        if "composite_bwd_mixed" in want_k:
+            todo += [(patched_source("composite_bwd", patches), defines)
+                     for _, patches, defines in MIX_VARIANTS]
         with ThreadPoolExecutor(8) as pool:
-            list(pool.map(lambda j: qcuda.build([j[0]], j[1]), jobs))
+            list(pool.map(lambda j: qcuda.build([j[0]], j[1]), todo))
     qcuda.build(qcuda.sources())
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -279,8 +496,18 @@ def main() -> int:
             f"random chunked slabs, K=2048, {t // 2 - t // 3} opaque stacks",
             (*slabs, gout, gacc, ntx, 16, rp.K_CHUNK, runs, counts))
         del slabs, gout, gacc
+    elif "copy_rows" in want_k:
+        rows += copy_rows_rows()
+    f32_k = want_k & {"composite", "composite_bwd", "slab_gather"}
     for label, n_alive, cap, k_cap in (("A", 80_000, 131_072, 256),
                                        ("B", 288_000, 327_680, 2048)):
+        if "composite_bwd_mixed" in want_k and not args.one_sweep:
+            m_args = step_inputs(n_alive, cap, k_cap, args.seed, mixed=True)
+            rows += mixed_rows(label, m_args)
+            del m_args
+            torch.cuda.empty_cache()
+        if not (f32_k or args.one_sweep):
+            continue
         f_args, b_args, g_args = step_inputs(n_alive, cap, k_cap, args.seed)
         if args.one_sweep:
             rows += one_sweep_rows(f"train {label} step's slabs, K={k_cap}",
@@ -288,20 +515,23 @@ def main() -> int:
             del f_args, b_args, g_args
             torch.cuda.empty_cache()
             continue
-        rows += fwd_rows(label, f_args)
-        want = rp.composite_tiles_bwd(*b_args)
-        for pix, group, fastdiv in BWD_VARIANTS:
-            kern = CudaKernel("composite_bwd", rp.COMPOSITE_BWD.symbol,
-                              rp.COMPOSITE_BWD.argtypes[:-1],
-                              bwd_defines(pix, group, fastdiv))
-            got = run_bwd(kern, b_args)
-            err = max(chip_smoke.bwd_channel_errs(got, want))
-            ms = chip_smoke.cuda_ms(lambda: run_bwd(kern, b_args), 20)
-            rows.append({"kernel": "composite_bwd", "scene": label,
-                         "pix": pix, "group": group, "fastdiv": fastdiv,
-                         "ms": ms, "err_vs_default": err})
-            print(json.dumps(rows[-1]), flush=True)
-        for ranks in (True, False):
+        if "composite" in want_k:
+            rows += fwd_rows(label, f_args)
+        if "composite_bwd" in want_k:
+            want = rp.composite_tiles_bwd(*b_args)
+            for pix, group, fastdiv in BWD_VARIANTS:
+                kern = CudaKernel("composite_bwd", rp.COMPOSITE_BWD.symbol,
+                                  rp.COMPOSITE_BWD.argtypes[:-1],
+                                  bwd_defines(pix, group, fastdiv))
+                got = run_bwd(kern, b_args)
+                err = max(chip_smoke.bwd_channel_errs(got, want))
+                ms = chip_smoke.cuda_ms(lambda: run_bwd(kern, b_args), 20)
+                rows.append({"kernel": "composite_bwd", "scene": label,
+                             "pix": pix, "group": group, "fastdiv": fastdiv,
+                             "ms": ms, "err_vs_default": err})
+                print(json.dumps(rows[-1]), flush=True)
+            del want
+        for ranks in ((True, False) if "slab_gather" in want_k else ()):
             ref = (tiles.slab_ranks(*g_args) if ranks else
                    tiles.slab_gather(g_args[0], g_args[1], g_args[3], -1))
             for pairs in SLAB_VARIANTS:
@@ -315,7 +545,7 @@ def main() -> int:
                              "mode": "ranks" if ranks else "gather",
                              "pairs": pairs, "ms": ms, "exact": exact})
                 print(json.dumps(rows[-1]), flush=True)
-        del f_args, b_args, g_args, want
+        del f_args, b_args, g_args
         torch.cuda.empty_cache()
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
