@@ -22,10 +22,13 @@ Phases (any failure exits non-zero):
 2c. hold the mixed_precision (bf16 operand) kernels against their
    plain versions on random slabs: K = 256 (two 128-slot blocks) with
    counts, K = 333 with counts of 0, 1, K and past K, 24-deep opaque stacks,
-   and chunked at K = 2048; the forward's handoff (block offsets and sums
-   of the rounded logs, chunk transmittances) feeds the backward, which is
-   also held bit-equal to its build with logf itself (its inline copy of
-   logf's normal-range path gives T bit-equal to the forward's);
+   chunked at K = 2048, and an opaque block (128 slots of alpha 0.999,
+   whose sum of rounded logs passes 2^24 units of 2^-15) alone at K = 256
+   and inside chunk 2 at K = 2048; the forward's handoff (block offsets and
+   sums of the rounded logs, chunk transmittances) feeds the backward; both
+   kernels are also held bit-equal to their witness build, which takes the
+   intrinsics (logf, __float2int_rn, __int2float_rn, __float2bfloat16_rn)
+   in place of ``csrc/mixed.cuh``'s exact forms;
 3. scene A (the bench's canonical point): 131,072 capacity / 80,000 alive,
    SH degree 3, K = 256, 1296x840, 4 orbit cameras through
    ``render(train=False)``;
@@ -38,10 +41,10 @@ train B. scene B at K = 2048: 3 steps, the chunked backward;
 train A/B mixed. scenes A and B trained with ``mixed_precision`` (3 and 2
    steps; B takes the chunked mixed kernels): one step's gradients against
    the float32 step's within the bf16 envelope (5e-2 of each tensor's max),
-   both mixed kernels held and timed on that step's inputs, the share of
-   the mixed backward's work its warp cull leaves out, and the share that
-   lies behind T = 0 (which it does not skip), computed from that step's
-   slabs in plain torch;
+   both mixed kernels held and timed on that step's inputs, the shares of
+   the mixed forward's and backward's work their warp culls leave out, and
+   the share that lies behind T = 0 (which the backward does not skip),
+   computed from that step's slabs in plain torch;
 bench. ``python -m qed_splatter_tpu_torch.bench``'s three points
    (``bench.py``'s: 80k / K = 256, 288k / K = 1024, and 80k / K = 256 with
    ``mixed_precision``), shortened to 3 + 3 steps (2 + 2 at the dense
@@ -146,9 +149,11 @@ SOURCES = {"composite": f"{CSRC}/composite.cu",
            "slab_gather_i32": f"{CSRC}/slab_gather.cu",
            "copy_rows": f"{CSRC}/copy_rows.cu"}
 TRAIN_STEPS_WARM, TRAIN_STEPS_TIMED = 3, 20
-# composite_bwd.cu's mixed kernel built with logf itself, against which the
-# default build's inline copy of logf's normal-range path is held bit-equal
-LOGF_DEFINES = ("-DQED_BWD_MIX_LOG=0",)
+# the witness build of both mixed kernels: the intrinsics (logf,
+# __float2int_rn, __int2float_rn, __float2bfloat16_rn) in place of
+# csrc/mixed.cuh's exact forms, against which the default builds are held
+# bit-equal
+WITNESS_DEFINES = ("-DQED_MIX_WITNESS=1",)
 # the bench's three points, shortened: warm-up and timed steps of each
 BENCH_TIMED, BENCH_DENSE_TIMED = 3, 2
 
@@ -270,6 +275,32 @@ def chunked_case(gen, t, d, num_tiles_x, k=2048):
     saturate[t // 3: t // 2] = True
     counts[saturate] = k
     return random_slabs(gen, t, k, d, counts, num_tiles_x, saturate), counts
+
+
+def opaque_block_case(gen, t, d, num_tiles_x, k, at, fade):
+    """Slabs (counts K) in which every fourth tile holds 128 consecutive
+    slots [at, at + 128) of alpha 0.999 over the whole tile: each rounded
+    log is -6.90625, so the block's sum passes 2^24 units of 2^-15 (|E| >
+    512) after 75 of them, where a float copy of the sum would stop being
+    exact. ``fade``: the slots in front of the stack on those tiles are made
+    faint (opacity x 0.02), so that a chunk in front stays open and the
+    stack is composited inside the next chunk. Returns (slabs, counts, the
+    tiles)."""
+    counts = torch.full((t,), k, dtype=torch.int32, device="cuda")
+    slabs = random_slabs(gen, t, k, d, counts, num_tiles_x)
+    means, conics, _, opac = slabs
+    sel = torch.zeros(t, dtype=torch.bool, device="cuda")
+    sel[::4] = True
+    tid = torch.arange(t, device="cuda")[sel]
+    stack = slice(at, at + 128)
+    means[sel, 0, stack] = ((tid % num_tiles_x) * 16 + 8.0)[:, None]
+    means[sel, 1, stack] = ((tid // num_tiles_x) * 16 + 8.0)[:, None]
+    conics[sel, :, stack] = torch.tensor([1e-6, 0.0, 1e-6],
+                                         device="cuda")[None, :, None]
+    opac[sel, 0, stack] = 0.999
+    if fade:
+        opac[sel, 0, :at] *= 0.02
+    return slabs, counts, sel
 
 
 def check_fwd(slabs, ntx, counts, k_chunk, label, poison=False):
@@ -493,14 +524,39 @@ def phase_bwd_parity(gen):
 
 # --------------------------------------------------------------- phase 2c
 
+def run_masks(runs, counts, k, k_chunk):
+    """[T, nb] and [T, nc] bool: the blocks and chunks of the mixed handoff
+    that each tile ran (the kernel writes no other entry)."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    n_run = rp.slots_run(runs.shape[0], k, k_chunk, runs, counts,
+                         runs.device)
+    nb, nc = rp.mixed_shapes(k, k_chunk)
+    kc = k_chunk if 0 < k_chunk < k else k
+    first = torch.arange(max(nb, nc), device=runs.device)
+    return ((first[:nb] * rp.MIX_BLOCK)[None] < n_run[:, None],
+            (first[:nc] * kc)[None] < n_run[:, None])
+
+
+def handoff_run(h, runs, counts, k, k_chunk):
+    """(offsets, sums, trans) of a mixed handoff, 0 outside the blocks and
+    chunks each tile ran."""
+    blk, chk = run_masks(runs, counts, k, k_chunk)
+    return (torch.where(blk[..., None], h.offsets, 0.0),
+            torch.where(blk[..., None], h.sums, 0),
+            torch.where(chk[..., None], h.trans, 0.0))
+
+
 def check_fwd_mixed(slabs, ntx, counts, k_chunk, label, poison=False):
     """The mixed forward kernel with its handoff against its plain version
     on the same slabs and counts: out and acc within TOL, the chunks run
     equal, and over the blocks and chunks each tile ran, the block sums of
     the rounded logs equal and the offsets (float32 sums in another order)
-    and chunk transmittances within TOL relative. With ``poison`` also: NaN
-    at and past each tile's count changes no output. Returns (chunks run,
-    handoff, max abs err)."""
+    and chunk transmittances within TOL relative; every output bit-equal to
+    the witness build (WITNESS_DEFINES). With ``poison`` also: NaN at and
+    past each tile's count changes no output. Returns (chunks run, handoff,
+    max abs err)."""
+    from qed_splatter_tpu_torch.cuda import CudaKernel
     from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
 
     t, _, k = slabs[2].shape
@@ -511,12 +567,7 @@ def check_fwd_mixed(slabs, ntx, counts, k_chunk, label, poison=False):
     ro, ra, hr = rp.composite_tiles_ref(*slabs, ntx, 16, counts, k_chunk,
                                         runs_ref, tail=True, mixed=True)
     err = max(max_abs(out, ro), max_abs(acc, ra))
-    n_run = rp.slots_run(t, k, k_chunk, runs, counts, "cuda")
-    nb, nc = rp.mixed_shapes(k, k_chunk)
-    kc = k_chunk if 0 < k_chunk < k else k
-    blk = (torch.arange(nb, device="cuda") * rp.MIX_BLOCK)[None] < n_run[:,
-                                                                        None]
-    chk = (torch.arange(nc, device="cuda") * kc)[None] < n_run[:, None]
+    blk, chk = run_masks(runs, counts, k, k_chunk)
     off, off_ref = h.offsets[blk], hr.offsets[blk]
     e_off = float(((off - off_ref).abs() / off_ref.abs().clamp(min=1.0))
                   .max()) if off.numel() else 0.0
@@ -532,6 +583,21 @@ def check_fwd_mixed(slabs, ntx, counts, k_chunk, label, poison=False):
           "the plain version's")
     check(max(e_off, e_tr) <= TOL, f"{label}: block offsets and chunk "
           f"transmittances within {TOL}")
+    main = rp.COMPOSITE_MIXED
+    rp.COMPOSITE_MIXED = CudaKernel(main.source, main.symbol,
+                                    main.argtypes[:-1], WITNESS_DEFINES)
+    try:
+        runs_w = torch.empty_like(runs)
+        wo, wa, wh = rp.composite_tiles_fwd_mixed(*slabs, ntx, 16, counts,
+                                                  k_chunk, runs_w, tail=True)
+    finally:
+        rp.COMPOSITE_MIXED = main
+    check(torch.equal(wo, out) and torch.equal(wa, acc)
+          and torch.equal(runs_w, runs)
+          and all(torch.equal(x, y) for x, y in zip(
+              handoff_run(wh, runs, counts, k, k_chunk),
+              handoff_run(h, runs, counts, k, k_chunk))),
+          f"{label}: bit-equal to the witness build (the intrinsics)")
     if poison:
         slot = torch.arange(k, device="cuda")[None, None, :]
         past = slot >= counts[:, None, None]
@@ -555,7 +621,7 @@ def check_bwd_mixed(slabs, gout, gacc, ntx, k_chunk, runs, counts, handoff,
     """The mixed backward kernel, fed by the mixed forward kernel's handoff,
     against autograd of the plain mixed forward (each bf16 rounding taken
     as the identity) within BWD_TOL of each channel's max, and bit-equal to
-    its build with logf itself (LOGF_DEFINES)."""
+    its witness build (WITNESS_DEFINES)."""
     from qed_splatter_tpu_torch.cuda import CudaKernel
     from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
 
@@ -568,14 +634,14 @@ def check_bwd_mixed(slabs, gout, gacc, ntx, k_chunk, runs, counts, handoff,
           f"{label}: gradients finite")
     main = rp.COMPOSITE_BWD_MIXED
     rp.COMPOSITE_BWD_MIXED = CudaKernel(main.source, main.symbol,
-                                        main.argtypes[:-1], LOGF_DEFINES)
+                                        main.argtypes[:-1], WITNESS_DEFINES)
     try:
-        with_logf = rp.composite_tiles_bwd_mixed(*args)
+        witness = rp.composite_tiles_bwd_mixed(*args)
     finally:
         rp.COMPOSITE_BWD_MIXED = main
-    check(all(torch.equal(a, b) for a, b in zip(got, with_logf)),
-          f"{label}: bit-equal to the build with logf itself (the inline "
-          "log is logf's, so T is the forward's)")
+    check(all(torch.equal(a, b) for a, b in zip(got, witness)),
+          f"{label}: bit-equal to the witness build (the intrinsics: the "
+          "inline log is logf's, so T is the forward's)")
     return check_bwd(got, want, runs, k_chunk, label, counts)
 
 
@@ -621,11 +687,48 @@ def mixed_bwd_shares(slabs, ntx, counts, runs, k_chunk, handoff):
             int((dark * in_blk[..., None]).sum()) / max(needed, 1))
 
 
+def mixed_fwd_shares(slabs, ntx, counts, runs, k_chunk):
+    """What ``composite.cu``'s mixed kernel leaves out on these inputs,
+    computed from the slabs in plain torch (not counted in the kernel). A
+    warp of that kernel holds an 8 x 8 block of the tile (rows from
+    8 (w >> 1), columns from 8 (w & 1)). Returns the shares of the needed
+    (warp, slot) pairs culled before the exp (no pixel of the warp has
+    sigma < log(255 op) + 1e-4) and after the exact keep (no pixel keeps the
+    slot; the first share included)."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    means, conics, _, opac = (x.detach() for x in slabs)
+    t, _, k = means.shape
+    n_run = rp.slots_run(t, k, k_chunk, runs, counts, "cuda")
+    thr = torch.log(255.0 * opac[:, 0]) + 1e-4                   # [T, K]
+    slot = torch.arange(k, device="cuda")
+
+    def by_warp(x):               # [Tc, P, K] -> any over each warp's pixels
+        return x.view(-1, 2, 8, 2, 8, k).any(4).any(2).view(-1, 4, k)
+
+    culled = unkept = 0
+    step = max(1, (1 << 24) // (256 * k))
+    for s in range(0, t, step):
+        sl = slice(s, s + step)
+        tid = torch.arange(s, min(s + step, t), device="cuda")
+        dx, dy, _, _, keep, _ = rp._alpha_local(means[sl], conics[sl],
+                                                opac[sl], tid, ntx, 16)
+        ca, cb, cc = (conics[sl, None, c, :] for c in range(3))
+        sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+        run = (slot[None, :] < n_run[sl, None])[:, None, :]      # [Tc, 1, K]
+        culled += int((~by_warp(sigma < thr[sl, None, :]) & run).sum())
+        unkept += int((~by_warp(keep) & run).sum())
+    needed = 4 * int(n_run.sum())
+    return culled / max(needed, 1), unkept / max(needed, 1)
+
+
 def phase_mixed_parity(gen):
     """The mixed_precision kernels against their plain versions on random
     slabs: K = 256 (two 128-slot blocks) with counts, an odd K with counts
     of 0, 1, K and past K, 24-deep opaque stacks (E far below float32's
-    exp range), and chunked at K = 2048."""
+    exp range), chunked at K = 2048, and an opaque block (128 slots of
+    alpha 0.999: the block's sum passes 2^24 units) alone at K = 256 and
+    inside chunk 2 at K = 2048."""
     from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
 
     print("phase 2c: the mixed_precision kernels against their plain "
@@ -636,29 +739,48 @@ def phase_mixed_parity(gen):
     counts = torch.randint(0, 257, (t,), generator=gen, device="cuda",
                            dtype=torch.int32)
     cases.append(("K=256 D=4, counted", random_slabs(gen, t, 256, 4, counts,
-                                                      ntx), counts, 0, True))
+                                                      ntx), counts, 0, True,
+                  None))
     low = torch.randint(0, 97, (t,), generator=gen, device="cuda",
                         dtype=torch.int32)
     low[:4] = torch.tensor([0, 1, 333, 383], device="cuda",
                            dtype=torch.int32)
     cases.append(("K=333 D=3, counts below 97 (and 0, 1, K, past K)",
-                  random_slabs(gen, t, 333, 3, low, ntx), low, 0, True))
+                  random_slabs(gen, t, 333, 3, low, ntx), low, 0, True,
+                  None))
     deep = torch.zeros(t, dtype=torch.bool, device="cuda")
     deep[::3] = True
     full = torch.full((t,), 256, dtype=torch.int32, device="cuda")
     cases.append(("K=256 D=4, 24-deep opaque stacks",
                   random_slabs(gen, t, 256, 4, full, ntx, deep, depth=24),
-                  full, 0, False))
+                  full, 0, False, None))
     slabs, counts = chunked_case(gen, t, 4, ntx, 2048)
     cases.append(("chunked K=2048 D=4, counted", slabs, counts, rp.K_CHUNK,
-                  True))
+                  True, None))
+    slabs, counts, sel = opaque_block_case(gen, t, 4, ntx, 256, 128, False)
+    cases.append(("K=256 D=4, an opaque block (slots 128-255)", slabs,
+                  counts, 0, False, (sel, 1)))
+    at = rp.K_CHUNK + 128
+    slabs, counts, sel = opaque_block_case(gen, t, 4, ntx, 2048, at, True)
+    cases.append((f"chunked K=2048 D=4, an opaque block in chunk 2 (slots "
+                  f"{at}-{at + 127})", slabs, counts, rp.K_CHUNK, False,
+                  (sel, at // rp.MIX_BLOCK)))
     errs = {}
-    for label, slabs, counts, k_chunk, poison in cases:
+    for label, slabs, counts, k_chunk, poison, opaque in cases:
         d = slabs[2].shape[1]
         runs, h, err = check_fwd_mixed(slabs, ntx, counts, k_chunk,
                                        f"composite mixed T={t} {label}",
                                        poison)
-        if k_chunk:
+        if opaque is not None:
+            sel, b = opaque
+            run_all = bool((runs[sel] == (2 if k_chunk else 1)).all())
+            print(f"  the opaque block {b}: block sums on its tiles "
+                  f"{int(h.sums[sel, b].max())} to {int(h.sums[sel, b].min())} "
+                  f"units")
+            check(run_all and bool((h.sums[sel, b] < -(1 << 24)).all()),
+                  "every pixel of the opaque tiles ran the block, and its sum "
+                  "passes 2^24 units")
+        elif k_chunk:
             by_count = int(((runs < 2) & (counts <= rp.K_CHUNK)).sum())
             by_sat = int(((runs < 2) & (counts > rp.K_CHUNK)).sum())
             both = int((runs == 2).sum())
@@ -1471,6 +1593,10 @@ def phase_train_mixed(label, n_alive, capacity, k_cap, n_steps, seed):
                             f"slabs (T={t}, K={k})")
     culled, dark, in_dark = mixed_bwd_shares(slabs, ntx, counts, runs,
                                              k_chunk, h)
+    f_culled, f_unkept = mixed_fwd_shares(slabs, ntx, counts, runs, k_chunk)
+    print(f"  composite mixed on the step's slabs: {f_culled:.4f} of the "
+          f"needed (warp, slot) pairs culled before the exp, {f_unkept:.4f} "
+          f"after the exact keep")
     print(f"  composite_bwd mixed on the step's slabs: {culled:.4f} of the "
           f"needed (warp, slot) pairs culled before the exp; {dark:.4f} "
           f"of the (warp, block) pairs run lie behind T = 0, holding "
@@ -1516,6 +1642,8 @@ def phase_train_mixed(label, n_alive, capacity, k_cap, n_steps, seed):
     ]
     entries[0]["vs_float32_step"] = {"grad_rel_max": max(rel.values()),
                                      "loss_rel": e_loss}
+    entries[0]["work_shares"] = {"culled_pairs": f_culled,
+                                 "unkept_pairs": f_unkept}
     entries[1]["work_shares"] = {"culled_pairs": culled,
                                  "blocks_behind_t0": dark,
                                  "pairs_behind_t0": in_dark}
@@ -1971,10 +2099,11 @@ def main() -> int:
     print("phase 1: build", flush=True)
     with ThreadPoolExecutor(2) as pool:     # every nvcc at once
         jobs = [pool.submit(qcuda.build, qcuda.sources()),
-                pool.submit(qcuda.build, ["composite_bwd"], LOGF_DEFINES)]
+                pool.submit(qcuda.build, ["composite", "composite_bwd"],
+                            WITNESS_DEFINES)]
         secs = max(j.result() for j in jobs)
-    print(f"  built {qcuda.sources()} and composite_bwd {LOGF_DEFINES} in "
-          f"{secs:.2f} s")
+    print(f"  built {qcuda.sources()} and composite, composite_bwd "
+          f"{WITNESS_DEFINES} in {secs:.2f} s")
     for name, log in qcuda.BUILD_LOGS.items():
         for line in log.splitlines():
             if "Compiling entry function" in line:

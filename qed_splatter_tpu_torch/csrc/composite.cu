@@ -80,6 +80,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mixed.cuh"
+
 #ifndef QED_FWD_PIX
 #define QED_FWD_PIX 2        // pixels per thread: 1, 2 or 4
 #endif
@@ -109,7 +111,6 @@ constexpr int kStage = (kBatch + kThreads - 1) / kThreads;  // slots a thread st
 constexpr unsigned kFull = 0xffffffffu;
 // the backward stops carrying T below this
 constexpr float kTransMin = 1e-30f;
-constexpr float kCullMargin = 1e-4f;
 
 static_assert(kPix == 1 || kPix == 2 || kPix == 4, "pixels per thread");
 static_assert(kBatch % 4 == 0 && kBatch >= 32, "batch length");
@@ -377,9 +378,9 @@ void launch(const void* means, const void* conics, const void* colors,
 // multiple of 2^-15 (alpha > 1/255 gives |l| > 2^-8, else l = 0), so the
 // in-block sum is carried as an integer count of 2^-15: exact in any order,
 // and equal to the f32 sum wherever |E| < 512 (beyond, T = 0 either way).
-// A batch is one block. Chunks (k_chunk > 0, a multiple of 128) start from
-// E = 0 and compose as out_A + (1 - acc_A) out_B, the JAX chunking, with the
-// f32 kernel's skip predicate on the composed acc.
+// Chunks (k_chunk > 0, a multiple of 128) start from E = 0 and compose as
+// out_A + (1 - acc_A) out_B, the JAX chunking, with the f32 kernel's skip
+// predicate on the composed acc.
 //
 // For the backward (offsets != null) it hands over per pixel: each block's
 // offset and integer sum (offsets, sums [T, nb, P]), from which the backward
@@ -389,22 +390,53 @@ void launch(const void* means, const void* conics, const void* colors,
 //
 // Bound: operations, as the f32 kernel, with a log, an exp of E in place of
 // T's product and the roundings of l and w per (pixel, slot) pair
-// (chip_smoke.py's fwd_mixed_ops_per_pair counts 32 + 2D). A staged batch
-// is one block (128 slots), so the stage is half the f32 kernel's.
-// Resources (nvcc 12.8 -Xptxas -v, sm_90a, kPix = 2): 72 / 64 / 64 / 56
-// registers at D = 4 / 3 / 2 / 1, 12,288 bytes of static shared memory, no
-// spills.
+// (chip_smoke.py's fwd_mixed_ops_per_pair counts 32 + 2D). Nothing
+// approximate may enter: the alpha masks, w's rounding and the block sums
+// are the plain version's bit for bit, so expf, logf's result and the
+// roundings stay as they are. The depth loop issues one instruction after
+// another (SASS below), so what the design does about the bound is to issue
+// fewer (tools/torch_kernel_variants.py times this build beside builds with
+// each step undone and with the steps that were tried and not kept; the
+// times are in PERF.md):
+// - log(1 - alpha) is logf's normal-range path inline (mixed.cuh's
+//   log_normal), bit-equal to logf on 1 - alpha in [9.9e-4, 1], without
+//   logf's branches for other arguments.
+// - The int of bf16(l) comes from the magic number (mixed.cuh's
+//   mix_units). Rounding to bf16 on the bits (four integer operations a
+//   value), l and w rounded by one conversion of the pair, and the magic
+//   number for the log's exponent were tried and cost time.
+// - E = offset + esum, esum a float copy of the block's rounded log sum:
+//   a sum of multiples of 2^-15 below 512 in size is exact, so it equals
+//   units 2^-15 and saves the int's conversion and a multiply; past 512, E
+//   <= -512 on both forms and T = 0.
+// - A slot is culled for a whole warp before the exp (as in the f32
+//   kernel), and nowhere else: a second warp test after the exact keep
+//   costs more than it skips, as does a test per pixel (the branches keep
+//   the two pixels' chains of a thread from overlapping).
+// - The depth loop takes kMixUnroll = 4 slots a trip, without a bound on
+//   the registers (a bound to 6 or 8 blocks per SM spills).
+// - A staged batch is one block (128 slots): the block's handoff and the
+//   move of its offset at the batch's end.
+// - Conic a and c are staged halved, as in the f32 kernel.
+// The depth loop (cuobjdump -sass, D = 4, one unrolled slot of two pixels)
+// is about 68 instructions per (pixel, slot) pair that is not culled, the
+// f32 kernel's with its handoff 39: float 50 (sigma 8.5 shared, two exps
+// 12, the log's polynomial 12, the masks, sums and colours), integer 9,
+// conversions 3 (two to bf16, the log's exponent) and 2 MUFU.EX2. At 16 a clock per SM
+// the 5 quarter-rate operations take 0.31 clocks a pair, the 68 issues 0.53
+// (128 a clock): issue sets the pace, not the conversion pipe. Before the
+// steps above the loop was about 84 (5 conversions); the witness build's
+// is 78.
+// Resources (nvcc 12.9 -Xptxas -v, sm_90a, 128 threads per block): 72 / 64
+// / 64 / 56 registers at D = 4 / 3 / 2 / 1 (7 / 8 / 8 / 9 blocks per SM),
+// 12,288 bytes of static shared memory, no spills.
 
-constexpr int kMixBlock = 128;            // the JAX kernel's _CUM_BLOCK
-constexpr float kMixScale = 32768.0f;     // 2^15
-constexpr float kMixUnit = 1.0f / 32768.0f;
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+constexpr int kMixPix = 2;                       // pixels per thread
+constexpr int kMixThreads = kPixels / kMixPix;   // 128
+constexpr int kMixUnroll = 4;                    // slots per trip of the loop
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMixThreads)
     composite_mixed_kernel(const float* __restrict__ means,     // [T, 2, K]
                            const float* __restrict__ conics,    // [T, 3, K]
                            const float* __restrict__ colors,    // [T, D, K]
@@ -429,13 +461,14 @@ __global__ void __launch_bounds__(kThreads)
   const float half = kTile * 0.5f;
   const float cxo = static_cast<float>((t % num_tiles_x) * kTile) + half;
   const float cyo = static_cast<float>((t / num_tiles_x) * kTile) + half;
+  // the f32 kernel's pixels: a warp covers an 8 x 4 kMixPix block
   const int col0 = (warp & 1) * 8 + (lane & 7);
-  const int row0 = (warp >> 1) * (4 * kPix) + (lane >> 3) * kPix;
+  const int row0 = (warp >> 1) * (4 * kMixPix) + (lane >> 3) * kMixPix;
   const float pxl = static_cast<float>(col0) + (0.5f - half);
-  float pyl[kPix];
-  int pix[kPix];
+  float pyl[kMixPix];
+  int pix[kMixPix];
 #pragma unroll
-  for (int q = 0; q < kPix; ++q) {
+  for (int q = 0; q < kMixPix; ++q) {
     pyl[q] = static_cast<float>(row0 + q) + (0.5f - half);
     pix[q] = (row0 + q) * kTile + col0;
   }
@@ -445,7 +478,7 @@ __global__ void __launch_bounds__(kThreads)
   const int n_t = counts != nullptr ? min(max(counts[t], 0), k) : k;
   if (n_t == 0) {
 #pragma unroll
-    for (int q = 0; q < kPix; ++q) {
+    for (int q = 0; q < kMixPix; ++q) {
 #pragma unroll
       for (int c = 0; c < D; ++c) out_t[c * kPixels + pix[q]] = 0.0f;
       acc_t[pix[q]] = 0.0f;
@@ -465,20 +498,20 @@ __global__ void __launch_bounds__(kThreads)
   const int chunk_len = k_chunk > 0 ? k_chunk : k;
 
   // per pixel: this chunk's out and acc, the composed chunks in front, and
-  // the exponent: the block's offset, its unrounded log sum, its rounded
-  // log sum in units of 2^-15
-  float part[kPix][D], part_acc[kPix], tot[kPix][D], tot_acc[kPix];
-  float e_off[kPix], blk_sum[kPix];
-  int units[kPix];
+  // the exponent: the block's offset, its unrounded log sum, its rounded log
+  // sum in units of 2^-15 and the same sum as a float (esum = units 2^-15)
+  float part[kMixPix][D], part_acc[kMixPix], tot[kMixPix][D], tot_acc[kMixPix];
+  float e_off[kMixPix], blk_sum[kMixPix], esum[kMixPix];
+  int units[kMixPix];
 #pragma unroll
-  for (int q = 0; q < kPix; ++q) {
+  for (int q = 0; q < kMixPix; ++q) {
 #pragma unroll
     for (int c = 0; c < D; ++c) {
       part[q][c] = 0.0f;
       tot[q][c] = 0.0f;
     }
     part_acc[q] = tot_acc[q] = 0.0f;
-    e_off[q] = blk_sum[q] = 0.0f;
+    e_off[q] = blk_sum[q] = esum[q] = 0.0f;
     units[q] = 0;
     if (trans_out != nullptr)
       trans_out[static_cast<size_t>(t) * nc * kPixels + pix[q]] = 1.0f;
@@ -490,12 +523,12 @@ __global__ void __launch_bounds__(kThreads)
     return min(kMixBlock - s % kMixBlock, n_t - s);
   };
   // staging as in the f32 kernel, the colours rounded to bf16
-  constexpr int kMixStage = (kMixBlock + kThreads - 1) / kThreads;
+  constexpr int kMixStage = (kMixBlock + kMixThreads - 1) / kMixThreads;
   float raw[kMixStage][6 + D];
   auto fetch = [&](int s, int n) {
 #pragma unroll
     for (int i = 0; i < kMixStage; ++i) {
-      const int j = tid + i * kThreads;
+      const int j = tid + i * kMixThreads;
       if (j < n) {
         const int g = s + j;
         raw[i][0] = mx_g[g];
@@ -512,7 +545,7 @@ __global__ void __launch_bounds__(kThreads)
   auto put = [&](int buf, int n) {
 #pragma unroll
     for (int i = 0; i < kMixStage; ++i) {
-      const int j = tid + i * kThreads;
+      const int j = tid + i * kMixThreads;
       if (j < n) {
         Slot sl;
         sl.mx = raw[i][0] - cxo;
@@ -547,16 +580,16 @@ __global__ void __launch_bounds__(kThreads)
     if (more) fetch(s_next, n_next);
 
     const Slot* sl = s_slot[buf];
-#pragma unroll 2
+#pragma unroll kMixUnroll
     for (int j = 0; j < n; ++j) {
       const float4* sp = reinterpret_cast<const float4*>(&sl[j]);
       const float4 sa = sp[0];
       const float4 sb = sp[1];
       const float dx = sa.x - pxl;
-      float sigma[kPix];
+      float sigma[kMixPix];
       bool near = false;
 #pragma unroll
-      for (int q = 0; q < kPix; ++q) {
+      for (int q = 0; q < kMixPix; ++q) {
         const float dy = sa.y - pyl[q];
         sigma[q] = (sa.z * dx * dx + sb.x * dy * dy) + sa.w * dx * dy;
         near = near || sigma[q] < sb.z;
@@ -566,19 +599,25 @@ __global__ void __launch_bounds__(kThreads)
       const float4 sc = sp[2];
       const float col[4] = {sc.x, sc.y, sc.z, sc.w};
 #pragma unroll
-      for (int q = 0; q < kPix; ++q) {
+      for (int q = 0; q < kMixPix; ++q) {
         const float a_raw = sb.y * expf(-sigma[q]);
         const bool keep = (sigma[q] >= 0.0f) && (a_raw > alpha_eps);
         const float alpha = keep ? fminf(a_raw, alpha_max) : 0.0f;
-        const float l = logf(fmaxf(1.0f - alpha, 1e-6f));
+        const float l = mix_log(1.0f - alpha);
+#if QED_MIX_WITNESS
         const float e = e_off[q] + __int2float_rn(units[q]) * kMixUnit;
+#else
+        const float e = e_off[q] + esum[q];
+#endif
         const float w = alpha * expf(e);
+        const float rb = round_bf16(l);
         const float wb = round_bf16(w);
 #pragma unroll
         for (int c = 0; c < D; ++c)
           part[q][c] = __fmaf_rn(col[c], wb, part[q][c]);  // exact product
         part_acc[q] += w;
-        units[q] += __float2int_rn(round_bf16(l) * kMixScale);
+        units[q] += mix_units(rb);
+        esum[q] += rb;
         blk_sum[q] += l;
       }
     }
@@ -586,21 +625,21 @@ __global__ void __launch_bounds__(kThreads)
     // the block ends: hand it over, and move the offset past it
     const int b = s / kMixBlock;
 #pragma unroll
-    for (int q = 0; q < kPix; ++q) {
+    for (int q = 0; q < kMixPix; ++q) {
       if (offsets != nullptr) {
         const size_t at = (static_cast<size_t>(t) * nb + b) * kPixels + pix[q];
         offsets[at] = e_off[q];
         sums[at] = units[q];
       }
       e_off[q] = e_off[q] + blk_sum[q];
-      blk_sum[q] = 0.0f;
+      blk_sum[q] = esum[q] = 0.0f;
       units[q] = 0;
     }
     s = s_next;
     if (!more || s % chunk_len == 0) {
       // the chunk ends: out_A + (1 - acc_A) out_B, E from 0 again
 #pragma unroll
-      for (int q = 0; q < kPix; ++q) {
+      for (int q = 0; q < kMixPix; ++q) {
         const float tr = 1.0f - tot_acc[q];
 #pragma unroll
         for (int c = 0; c < D; ++c) {
@@ -616,12 +655,12 @@ __global__ void __launch_bounds__(kThreads)
     if (s % chunk_len == 0) {
       bool open = false;
 #pragma unroll
-      for (int q = 0; q < kPix; ++q)
+      for (int q = 0; q < kMixPix; ++q)
         open = open || ((1.0f - tot_acc[q]) >= early_eps);
       if (!__syncthreads_or(open)) break;
       if (trans_out != nullptr) {
 #pragma unroll
-        for (int q = 0; q < kPix; ++q)
+        for (int q = 0; q < kMixPix; ++q)
           trans_out[(static_cast<size_t>(t) * nc + chunks) * kPixels + pix[q]] =
               1.0f - tot_acc[q];
       }
@@ -634,7 +673,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
 #pragma unroll
-  for (int q = 0; q < kPix; ++q) {
+  for (int q = 0; q < kMixPix; ++q) {
 #pragma unroll
     for (int c = 0; c < D; ++c) out_t[c * kPixels + pix[q]] = tot[q][c];
     acc_t[pix[q]] = tot_acc[q];
@@ -648,7 +687,7 @@ void launch_mixed(const void* means, const void* conics, const void* colors,
                   void* chunks_run, void* offsets, void* sums, void* trans,
                   int t, int k, int num_tiles_x, int k_chunk, float early_eps,
                   int nb, int nc, cudaStream_t stream) {
-  composite_mixed_kernel<D><<<t, kThreads, 0, stream>>>(
+  composite_mixed_kernel<D><<<t, kMixThreads, 0, stream>>>(
       static_cast<const float*>(means), static_cast<const float*>(conics),
       static_cast<const float*>(colors), static_cast<const float*>(opac),
       static_cast<const int32_t*>(counts), static_cast<float*>(out),

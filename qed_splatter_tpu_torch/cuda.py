@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` on first use into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds), cached under ``csrc/build/`` by a hash of the source and flags,
+seconds), cached under ``csrc/build/`` by a hash of the source, the headers
+it may include (``csrc/*.cuh`` and those beside the source) and the flags,
 and loaded with ``ctypes``. Every C entry point takes device pointers, sizes
 and a ``cudaStream_t`` and returns ``cudaGetLastError()``; :class:`CudaKernel`
 raises when that is non-zero and counts successful launches.
@@ -49,10 +50,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str, defines: Sequence[str] = ()) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    flags = " ".join((*NVCC_FLAGS, *defines))
-    digest = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{Path(name).name}-{digest}.so"
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    # a header beside the source is found first, then those of csrc/ (-I)
+    for d in dict.fromkeys((src.parent, CSRC)):
+        for header in sorted(d.glob("*.cuh")):
+            h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join((*NVCC_FLAGS, *defines)).encode())
+    return BUILD_DIR / f"lib{Path(name).name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str], defines: Sequence[str] = ()) -> float:
@@ -68,8 +73,8 @@ def build(names: Sequence[str], defines: Sequence[str] = ()) -> float:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-I", str(CSRC), "-o",
+               str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []

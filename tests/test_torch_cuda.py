@@ -416,18 +416,30 @@ def test_trainer_on_the_card_grows_and_launches_every_kernel(gen, tmp_path):
     assert (trainer.run_dir / "splat.ply").exists()
 
 
+def _witness(kern):
+    """``kern`` built with the intrinsics in place of csrc/mixed.cuh's
+    exact forms."""
+    from qed_splatter_tpu_torch.cuda import CudaKernel
+
+    return CudaKernel(kern.source, kern.symbol, kern.argtypes[:-1],
+                      ("-DQED_MIX_WITNESS=1",))
+
+
 @pytest.mark.parametrize("d,k,chunked,stack", [
     (3, 128, False, 0), (4, 256, False, 0), (3, 333, False, 0),
-    (4, 2304, True, 0), (4, 256, False, 20), (4, 2304, True, 20)])
-def test_mixed_kernels_match_plain(gen, d, k, chunked, stack):
+    (4, 2304, True, 0), (4, 256, False, 20), (4, 2304, True, 20),
+    (4, 256, False, 128), (4, 2304, True, 128)])
+def test_mixed_kernels_match_plain(gen, d, k, chunked, stack, monkeypatch):
     """The mixed_precision (bf16 operand) forward and backward kernels
     against their plain versions: the forward within TOL with the block
     sums of its handoff equal, the backward, fed by that handoff, against
     autograd of the plain mixed forward; tile counts below K, exact zeros
-    past them. ``stack``: a third of the tiles start with that many slots of
-    alpha 0.999 over the whole tile, so exp(E) underflows to 0 inside the
-    first block (about 16 slots) and every term behind it is an exact zero:
-    exact zeros from slot 17 on."""
+    past them; both bit-equal to their witness build (the intrinsics).
+    ``stack``: a third of the tiles start with that many slots of alpha
+    0.999 over the whole tile, so exp(E) underflows to 0 inside the first
+    block (about 16 slots) and every term behind it is an exact zero: exact
+    zeros from slot 17 on. A stack of 128 is an opaque block: its sum of
+    rounded logs passes 2^24 units (|E| > 512), alone and inside chunk 1."""
     from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
 
     t, ntx = 60, 10
@@ -463,6 +475,23 @@ def test_mixed_kernels_match_plain(gen, d, k, chunked, stack):
     torch.cuda.synchronize()
     assert (rp.COMPOSITE_MIXED.launches, rp.COMPOSITE_BWD_MIXED.launches) == (
         before[0] + 1, before[1] + 1)
+    monkeypatch.setattr(rp, "COMPOSITE_MIXED", _witness(rp.COMPOSITE_MIXED))
+    monkeypatch.setattr(rp, "COMPOSITE_BWD_MIXED",
+                        _witness(rp.COMPOSITE_BWD_MIXED))
+    runs_w = torch.empty_like(runs)
+    wo, wa, wh = rp.composite_tiles_fwd_mixed(*slabs, ntx, 16, counts,
+                                              k_chunk, runs_w, tail=True)
+    kc = k_chunk if chunked else k
+    chk = (torch.arange(wh.trans.shape[1], device="cuda") * kc)[None] < n_run[
+        :, None]
+    assert torch.equal(wo, out) and torch.equal(wa, acc)
+    assert torch.equal(runs_w, runs)
+    for x, y, m in ((wh.offsets, h.offsets, blk), (wh.sums, h.sums, blk),
+                    (wh.trans, h.trans, chk)):
+        assert torch.equal(x[m], y[m])
+    witness = rp.composite_tiles_bwd_mixed(*slabs, gout, gacc, ntx, 16,
+                                           k_chunk, runs, counts, h)
+    assert all(torch.equal(a, b) for a, b in zip(got, witness))
     want = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, ntx, 16,
                                       k_chunk=k_chunk, chunks_run=runs,
                                       tile_counts=counts, mixed=True)
@@ -470,6 +499,8 @@ def test_mixed_kernels_match_plain(gen, d, k, chunked, stack):
     past = torch.arange(k, device="cuda")[None, None, :] >= counts[
         :, None, None].long()
     assert all(not bool(torch.where(past, g, 0.0).any()) for g in got)
+    if stack >= 128:
+        assert bool((h.sums[stacked, 0] < -(1 << 24)).all())
     if stack:
         assert bool((torch.exp(h.offsets[stacked, 1]) == 0).all())
         for g, w in zip(got, want):

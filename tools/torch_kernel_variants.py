@@ -3,6 +3,7 @@
 
     python3 tools/torch_kernel_variants.py [--seed 0] [--out FILE.json]
                                            [--one-sweep] [--kernels LIST]
+                                           [--parent DIR] [--sass DIR]
 
 The kernels take their tuning constants from ``-D`` flags
 (``csrc/composite.cu``: ``QED_FWD_PIX`` pixels per thread, ``QED_FWD_BATCH``
@@ -11,27 +12,34 @@ slots staged at a time, ``QED_FWD_CULL`` the warp cull before the exp,
 trip of the depth loop; ``csrc/composite_bwd.cu``: ``QED_BWD_PIX`` pixels
 per thread, ``QED_BWD_GROUP`` slots per warp reduction, ``QED_BWD_FASTDIV``;
 ``csrc/slab_gather.cu``: ``QED_SLAB_PAIRS`` 16-byte pairs per thread). The
-mixed_precision backward (``composite_bwd.cu``'s
-``composite_bwd_mixed_kernel``) has no tuning flags but
-``QED_BWD_MIX_LOG=0`` (logf itself): its variants are the build with one
-step of its design undone, each written here as a patch of the source's text
-(MIX_VARIANTS; a patch whose text is not in the source exactly once fails),
-built from a copy under ``csrc/build/variants/``. This script builds each
-variant beside the default build, runs it on the inputs of one training step
-of ``chip_smoke.py``'s scene A (80k alive, K=256) and scene B (288k alive,
-K=2048) at 1296x840 (float32; the mixed backward on the state
-``chip_smoke.py``'s mixed phase holds it on, beside the float32 backward on
-the same slabs), holds it against the default build's result (and the mixed
-backward against its plain version), and prints one JSON line per variant
-with its CUDA-event time and, where nvcc built it in this run, the
-registers, spills and blocks per SM of its kernels. The forward is timed
+mixed_precision kernels (``composite.cu``'s ``composite_mixed_kernel``,
+``composite_bwd.cu``'s ``composite_bwd_mixed_kernel``) have no tuning flags
+but the witness build ``QED_MIX_WITNESS=1`` (the intrinsics in place of
+``csrc/mixed.cuh``'s exact forms): their variants are the build with one
+step of its design undone, each written here as a patch of the text of the
+source and of the headers it includes (FWD_MIX_VARIANTS, MIX_VARIANTS; a
+patch whose text is not in those files exactly once fails), built from a
+copy in a directory of its own under ``csrc/build/variants/``. This script
+builds each variant beside the default build, runs it on the inputs of one
+training step of ``chip_smoke.py``'s scene A (80k alive, K=256) and scene B
+(288k alive, K=2048) at 1296x840 (float32; the mixed kernels on the state
+``chip_smoke.py``'s mixed phase holds them on, beside the float32 kernel on
+the same slabs, the forward with its handoff), holds it against the default
+build's result (and the mixed kernels against their plain versions), and
+prints one JSON line per variant with its CUDA-event time and, where nvcc
+built it in this run, the registers, spills and blocks per SM of its
+kernels. The mixed forward's builds are timed twice each, in turns, and
+``--parent DIR`` (another tree's ``csrc/``) times that tree's mixed forward
+beside them; ``--sass DIR`` writes the SASS (``cuobjdump -sass``) of the
+default, witness and parent builds there and prints each D = 4 kernel's
+opcode counts. The forward is timed
 without and with the handoff to the backward. Its ``__expf`` variant is
 measured only: its line counts the pixels that an alpha mask which flips
 against ``expf`` moves by more than rounding (1e-4) on the step's slabs. The
 identity copy (#7) is timed by CUDA-graph replays at the copy tool's two
 shapes ([327,680, 10] and [4,396,032, 10] float32), into a new tensor and
 into a preallocated one, beside ``Tensor.copy_`` and ``clone``.
-``--kernels`` (a comma list of composite, composite_bwd,
+``--kernels`` (a comma list of composite, composite_bwd, composite_mixed,
 composite_bwd_mixed, slab_gather, copy_rows) times only those.
 
 ``--one-sweep`` measures instead why the backward carries what lies behind
@@ -53,6 +61,7 @@ import ctypes
 import hashlib
 import json
 import re
+import statistics
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -77,9 +86,102 @@ FWD_VARIANTS = [(2, 256, 1, 0, 4), (1, 256, 1, 0, 4), (4, 256, 1, 0, 4),
 BWD_VARIANTS = [(2, 4, 0), (1, 4, 0), (1, 8, 0), (2, 2, 0), (2, 8, 0),
                 (4, 2, 0), (4, 4, 0), (2, 4, 1)]
 SLAB_VARIANTS = [4, 1, 2, 8]
-# the mixed backward: (label, patches of composite_bwd.cu's text as (old,
-# new), defines); the default build first, then each step of the design
-# undone, then other shapes
+# the mixed forward (composite.cu's composite_mixed_kernel): (label,
+# patches of the text of composite.cu and mixed.cuh as (old, new),
+# defines); the default build first, then each step of its design undone,
+# then the steps that were tried and not kept, then other shapes, then the
+# witness build with the intrinsics
+
+
+def _bits(x):
+    """bf16 rounding of the float ``x`` on its bits, in place: u + 0x7fff +
+    bit 16 of u with the low half cleared, nearest even for a finite x."""
+    u = f"__float_as_uint({x})"
+    return (f"{x} = __uint_as_float(({u} + 0x7fffu + (({u} >> 16) & 1u)) & "
+            "0xffff0000u);")
+
+
+_LOGF = ("return log_normal(one_minus_alpha);",
+         "return logf(one_minus_alpha);")
+_ALPHA = """        const float alpha = keep ? fminf(a_raw, alpha_max) : 0.0f;
+        const float l = mix_log(1.0f - alpha);"""
+_TWO_BLOCKS = (
+    ("__shared__ Slot s_slot[2][kMixBlock];",
+     "__shared__ Slot s_slot[2][2 * kMixBlock];"),
+    ("return min(kMixBlock - s % kMixBlock, n_t - s);",
+     "return min(2 * kMixBlock, min(n_t - s, chunk_len - s % chunk_len));"),
+    ("constexpr int kMixStage = (kMixBlock + kMixThreads - 1)",
+     "constexpr int kMixStage = (2 * kMixBlock + kMixThreads - 1)"),
+    ("#pragma unroll kMixUnroll\n    for (int j = 0; j < n; ++j) {",
+     "for (int j0 = 0; j0 < n; j0 += kMixBlock) {\n#pragma unroll kMixUnroll"
+     "\n    for (int j = j0; j < min(j0 + kMixBlock, n); ++j) {"),
+    ("const int b = s / kMixBlock;", "const int b = (s + j0) / kMixBlock;"),
+    ("      units[q] = 0;\n    }\n", "      units[q] = 0;\n    }\n    }\n"))
+_KEEP = """#pragma unroll
+      for (int q = 0; q < kMixPix; ++q) {
+        const float a_raw = sb.y * expf(-sigma[q]);
+        const bool keep = (sigma[q] >= 0.0f) && (a_raw > alpha_eps);
+        const float alpha = keep ? fminf(a_raw, alpha_max) : 0.0f;
+"""
+_KEEP_WARP = """      float alphas[kMixPix];
+      bool kept = false;
+#pragma unroll
+      for (int q = 0; q < kMixPix; ++q) {
+        const float a_raw = sb.y * expf(-sigma[q]);
+        const bool keep = (sigma[q] >= 0.0f) && (a_raw > alpha_eps);
+        alphas[q] = keep ? fminf(a_raw, alpha_max) : 0.0f;
+        kept = kept || keep;
+      }
+      if (!__any_sync(kFull, kept)) continue;
+#pragma unroll
+      for (int q = 0; q < kMixPix; ++q) {
+        const float alpha = alphas[q];
+"""
+_ROUND = ("const float rb = round_bf16(l);\n"
+          "        const float wb = round_bf16(w);")
+WITNESS = ("-DQED_MIX_WITNESS=1",)
+FWD_MIX_VARIANTS = [
+    ("default", (), ()),
+    ("logf itself", (_LOGF,), ()),
+    ("E by __int2float_rn of the block's units",
+     (("const float e = e_off[q] + esum[q];",
+       "const float e = e_off[q] + __int2float_rn(units[q]) * kMixUnit;"),),
+     ()),
+    ("the int of bf16(l) by __float2int_rn",
+     (("units[q] += mix_units(rb);",
+       "units[q] += __float2int_rn(rb * kMixScale);"),), ()),
+    ("unroll 2", (("constexpr int kMixUnroll = 4;",
+                   "constexpr int kMixUnroll = 2;"),), ()),
+    ("with l and w rounded to bf16 as one pair",
+     ((_ROUND, "const __nv_bfloat162 lw = __floats2bfloat162_rn(l, w);\n"
+       "        const float rb = __low2float(lw), wb = __high2float(lw);"),),
+     ()),
+    ("with bf16 rounding on the bits",
+     ((_ROUND, "float rb = l, wb = w;\n        " + _bits("rb")
+       + "\n        " + _bits("wb")),), ()),
+    ("with the log's exponent by the magic number",
+     (("  return __fmaf_rn(__fmul_rn(__int2float_rn(e), "
+       "1.1920928955078125e-07f),\n",
+       "  return __fmaf_rn(__fadd_rn(__int_as_float(((bits - 0x3f2aaaab) >> "
+       "23) + 0x4b400000), -12582912.0f),\n"),), ()),
+    ("with a warp test after the exact keep", ((_KEEP, _KEEP_WARP),), ()),
+    ("with a warp test per pixel after the exact keep",
+     ((_ALPHA, "        const float alpha = keep ? fminf(a_raw, alpha_max) "
+       ": 0.0f;\n        if (!__any_sync(kFull, alpha > 0.0f)) continue;\n"
+       "        const float l = mix_log(1.0f - alpha);"),), ()),
+    ("with the registers bounded to 8 blocks per SM",
+     (("__launch_bounds__(kMixThreads)", "__launch_bounds__(kMixThreads, 8)"),
+      ), ()),
+    ("with two blocks a batch", _TWO_BLOCKS, ()),
+    ("one pixel a thread", (("constexpr int kMixPix = 2;",
+                             "constexpr int kMixPix = 1;"),), ()),
+    ("four pixels a thread", (("constexpr int kMixPix = 2;",
+                               "constexpr int kMixPix = 4;"),), ()),
+    ("the witness build", (), WITNESS),
+]
+# the mixed backward: (label, patches of composite_bwd.cu's and mixed.cuh's
+# text as (old, new), defines); the default build first, then each step of
+# the design undone, then other shapes
 _MIX_BLOCKS = ("__launch_bounds__(kThreads, kMixMinBlocks)",
                "__launch_bounds__(kThreads)")
 _MIX_GROUP = ("constexpr int kGroupM = 4;", "constexpr int kGroupM = 2;")
@@ -92,13 +194,17 @@ MIX_VARIANTS = [
        "true ? composite_bwd_mixed_kernel<D, true>"),), ()),
     ("the exact division",
      (("behind[q] * rcp_approx(om)", "__fdiv_rn(behind[q], om)"),), ()),
-    ("logf itself", (), ("-DQED_BWD_MIX_LOG=0",)),
+    ("logf itself", (_LOGF,), ()),
+    ("the int of bf16(l) by __float2int_rn",
+     (("units[q] -= mix_units(round_bf16(l));",
+       "units[q] -= __float2int_rn(round_bf16(l) * kMixScale);"),), ()),
+    ("the witness build", (), WITNESS),
     ("no bound on the registers", (_MIX_BLOCKS,), ()),
     ("two slots a warp reduction", (_MIX_GROUP,), ()),
     ("four pixels a thread", (), ("-DQED_BWD_PIX=4",)),
 ]
-KERNELS = ("composite", "composite_bwd", "composite_bwd_mixed",
-           "slab_gather", "copy_rows")
+KERNELS = ("composite", "composite_bwd", "composite_mixed",
+           "composite_bwd_mixed", "slab_gather", "copy_rows")
 
 
 def fwd_defines(pix, batch, cull, fastexp, unroll):
@@ -116,23 +222,33 @@ def slab_defines(pairs):
     return (f"-DQED_SLAB_PAIRS={pairs}",)
 
 
-def patched_source(name, patches):
+def patched_source(name, patches, csrc=None):
     """The name (relative to ``csrc/``, as :class:`CudaKernel` takes it) of
-    a copy of ``csrc/<name>.cu`` with each ``(old, new)`` patch applied; the
-    source itself without patches."""
-    if not patches:
+    a copy of ``<csrc>/<name>.cu`` and of the headers ``<csrc>/*.cuh`` it
+    includes, in a directory of their own under ``csrc/build/variants/``,
+    with each ``(old, new)`` patch applied to whichever of those files holds
+    ``old`` (it must occur exactly once among them); the source itself
+    without patches. ``csrc`` (default: the package's ``csrc/``) copies
+    another tree's sources instead."""
+    src = Path(csrc) if csrc is not None else qcuda.CSRC
+    if not patches and src == qcuda.CSRC:
         return name
-    text = (qcuda.CSRC / f"{name}.cu").read_text()
+    texts = {f"{name}.cu": (src / f"{name}.cu").read_text()}
+    texts.update((h.name, h.read_text()) for h in sorted(src.glob("*.cuh")))
     for old, new in patches:
-        if text.count(old) != 1:
-            raise ValueError(f"{name}.cu holds {old!r} {text.count(old)} "
-                             "times, not once")
-        text = text.replace(old, new)
-    out_dir = qcuda.BUILD_DIR / "variants"
+        where = [f for f, text in texts.items() if old in text]
+        found = sum(texts[f].count(old) for f in where)
+        if found != 1:
+            raise ValueError(f"{name}.cu and its headers hold {old!r} "
+                             f"{found} times, not once")
+        texts[where[0]] = texts[where[0]].replace(old, new)
+    digest = hashlib.sha256(json.dumps(texts, sort_keys=True).encode()
+                            ).hexdigest()[:12]
+    out_dir = qcuda.BUILD_DIR / "variants" / digest
     out_dir.mkdir(parents=True, exist_ok=True)
-    digest = hashlib.sha256(text.encode()).hexdigest()[:12]
-    (out_dir / f"{name}-{digest}.cu").write_text(text)
-    return f"build/variants/{name}-{digest}"
+    for f, text in texts.items():
+        (out_dir / f).write_text(text)
+    return f"build/variants/{digest}/{name}"
 
 
 def step_inputs(n_alive, capacity, k_cap, seed, mixed=False):
@@ -140,8 +256,9 @@ def step_inputs(n_alive, capacity, k_cap, seed, mixed=False):
     backward kernel and the window gather, captured from the step itself;
     ``mixed``: the step of ``mixed_precision`` on the state on which
     ``chip_smoke.py``'s mixed phase holds its kernels, whose backward's
-    arguments (those of ``composite_tiles_bwd_mixed``) are returned
-    alone."""
+    forward's and backward's arguments (those of
+    ``composite_tiles_fwd_mixed`` and ``composite_tiles_bwd_mixed``) are
+    returned."""
     from qed_splatter_tpu_torch.configs import ModelConfig, \
         default_optimizers
     from qed_splatter_tpu_torch.engine.optim import GroupOptimizers
@@ -162,11 +279,12 @@ def step_inputs(n_alive, capacity, k_cap, seed, mixed=False):
     if mixed:           # the state chip_smoke.py's mixed phase times on
         del state
         state = chip_smoke.spread_state(n_alive, capacity, seed, optims)
-        with chip_smoke.Capture(rp, "composite_tiles_bwd_mixed") as cap_m:
+        with chip_smoke.Capture(rp, "composite_tiles_fwd_mixed") as cap_f, \
+                chip_smoke.Capture(rp, "composite_tiles_bwd_mixed") as cap_m:
             step.grads(state, batch, chip_smoke.background_generator(seed))
         torch.cuda.synchronize()
-        return [x.detach() if torch.is_tensor(x) else x
-                for x in cap_m.args]
+        return [[x.detach() if torch.is_tensor(x) else x for x in cap.args]
+                for cap in (cap_f, cap_m)]
     with chip_smoke.Capture(rp, "composite_tiles_bwd") as cap_b, \
             chip_smoke.Capture(rp, "composite_tiles_fwd") as cap_f, \
             chip_smoke.Capture(tiles, "slab_ranks") as cap_g:
@@ -313,6 +431,134 @@ def fwd_rows(label, f_args):
     return rows
 
 
+class Swapped:
+    """``module.name`` replaced by ``value`` inside the block."""
+
+    def __init__(self, module, name, value):
+        self.module, self.name, self.value = module, name, value
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+
+
+def cuobjdump() -> str:
+    return str(Path(qcuda._nvcc()).parent / "cuobjdump")
+
+
+def sass_opcodes(kern, kernel_name, out_dir, tag):
+    """The SASS of one build (``cuobjdump -sass``) written to
+    ``out_dir/<tag>.sass``, and the count of each opcode (its first word,
+    before the first dot) in the function whose demangled name starts with
+    ``kernel_name``: a static count of the whole function, for reading the
+    depth loop by hand in the file."""
+    lib = qcuda._lib_path(kern.source, kern.defines)
+    text = subprocess.run([cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"{tag}.sass").write_text(text)
+    funcs = re.split(r"\n\s*Function : ", text)[1:]
+    names = kernel_names([f.split(None, 1)[0] for f in funcs])
+    counts = {}
+    for name, body in zip(names, funcs):
+        if not name.startswith(kernel_name):
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                         r"([A-Z][A-Z0-9_]*)", body)
+        hist = {}
+        for op in ops:
+            hist[op] = hist.get(op, 0) + 1
+        counts[name] = dict(sorted(hist.items(), key=lambda x: -x[1]))
+    return counts
+
+
+def mixed_fwd_outputs(args):
+    """out, acc, chunks run and the handoff (zeroed outside the blocks and
+    chunks each tile ran) of ``composite_tiles_fwd_mixed`` on its
+    arguments, by whichever kernel ``rp.COMPOSITE_MIXED`` is."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    slabs, (ntx, ts, counts, k_chunk) = args[:4], args[4:8]
+    t, _, k = slabs[2].shape
+    runs = torch.empty(t, dtype=torch.int32, device="cuda")
+    out, acc, h = rp.composite_tiles_fwd_mixed(*slabs, ntx, ts, counts,
+                                               k_chunk, runs, tail=True)
+    return [out, acc, runs,
+            *chip_smoke.handoff_run(h, runs, counts, k, k_chunk)]
+
+
+def mixed_fwd_rows(label, f_args, parent=None, sass_dir=""):
+    """One row per variant of the mixed forward on one mixed step's own
+    inputs (``parent``: a tree's ``csrc/`` whose kernel is timed too), held
+    against the default build and the plain version, beside the float32
+    forward with its handoff on the same slabs. Every build is timed twice,
+    in turns (the list, then the list reversed), on one card."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    slabs, (ntx, ts, counts, k_chunk) = f_args[:4], f_args[4:8]
+    t, _, k = slabs[2].shape
+    variants = [(v, p, d, None) for v, p, d in FWD_MIX_VARIANTS]
+    if parent:
+        variants.append(("the parent tree's kernel", (), (), parent))
+    kerns = [CudaKernel(patched_source("composite", p, c),
+                        rp.COMPOSITE_MIXED.symbol,
+                        rp.COMPOSITE_MIXED.argtypes[:-1], d)
+             for _, p, d, c in variants]
+    runs_ref = torch.empty(t, dtype=torch.int32, device="cuda")
+    ro, ra, hr = rp.composite_tiles_ref(*slabs, ntx, ts, counts, k_chunk,
+                                        runs_ref, tail=True, mixed=True)
+    plain_sums = chip_smoke.handoff_run(hr, runs_ref, counts, k, k_chunk)[1]
+    rows, want = [], None
+    for (variant, _, defines, _), kern in zip(variants, kerns):
+        with Swapped(rp, "COMPOSITE_MIXED", kern):
+            got = mixed_fwd_outputs(f_args)
+        want = got if want is None else want
+        rows.append({
+            "kernel": "composite_mixed", "scene": label, "variant": variant,
+            "exact_vs_default": all(torch.equal(g, w)
+                                    for g, w in zip(got, want)),
+            "err_vs_plain": max(chip_smoke.max_abs(got[0], ro),
+                                chip_smoke.max_abs(got[1], ra)),
+            "sums_equal_plain": torch.equal(got[4], plain_sums),
+            "resources": {
+                name: r for name, r in kernel_resources(
+                    " ".join((kern.source, *defines))).items()
+                if name.startswith("composite_mixed")},
+            "ms_passes": []})
+    f32_args = (*slabs, ntx, ts, counts, k_chunk,
+                torch.empty(t, dtype=torch.int32, device="cuda"), True)
+    f32 = {"kernel": "composite (float32, with its handoff, the same slabs)",
+           "scene": label, "ms_passes": []}
+    order = list(zip(rows, kerns))
+    for pass_order in (order, order[::-1]):
+        for row, kern in pass_order:
+            with Swapped(rp, "COMPOSITE_MIXED", kern):
+                row["ms_passes"].append(chip_smoke.cuda_ms(
+                    lambda: rp.composite_tiles_fwd_mixed(
+                        *slabs, ntx, ts, counts, k_chunk, None, True), 50))
+        f32["ms_passes"].append(chip_smoke.cuda_ms(
+            lambda: rp.composite_tiles_fwd(*f32_args), 50))
+    for row in (*rows, f32):
+        row["ms"] = statistics.mean(row["ms_passes"])
+        print(json.dumps(row), flush=True)
+    if sass_dir:
+        for (variant, _, _, _), kern in zip(variants, kerns):
+            if variant in ("default", "the witness build",
+                           "the parent tree's kernel") and label == "A":
+                tag = "composite-" + re.sub(r"\W+", "_", variant)
+                ops = sass_opcodes(kern, "composite_", sass_dir, tag)
+                ops = {"variant": variant, "sass_file": f"{tag}.sass",
+                       "opcodes_d4": {n: h for n, h in ops.items()
+                                      if "<4" in n}}
+                print(json.dumps(ops), flush=True)
+    return [*rows, f32]
+
+
 def mixed_rows(label, m_args):
     """One row per variant of the mixed backward on one mixed step's own
     inputs, held against the default build and the plain version."""
@@ -447,6 +693,12 @@ def main() -> int:
                     help="measure the one-sweep form's error instead")
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help="comma list of the kernels whose variants to time")
+    ap.add_argument("--parent", default="",
+                    help="another tree's csrc/ whose mixed forward is timed "
+                         "beside the variants")
+    ap.add_argument("--sass", default="",
+                    help="a directory for the SASS of the mixed forward's "
+                         "default, witness and parent builds")
     args = ap.parse_args()
     want_k = set(args.kernels.split(","))
     if not want_k <= set(KERNELS):
@@ -468,6 +720,12 @@ def main() -> int:
         if "composite_bwd_mixed" in want_k:
             todo += [(patched_source("composite_bwd", patches), defines)
                      for _, patches, defines in MIX_VARIANTS]
+        if "composite_mixed" in want_k:
+            todo += [(patched_source("composite", patches), defines)
+                     for _, patches, defines in FWD_MIX_VARIANTS]
+            if args.parent:
+                todo.append((patched_source("composite", (), args.parent),
+                             ()))
         with ThreadPoolExecutor(8) as pool:
             list(pool.map(lambda j: qcuda.build([j[0]], j[1]), todo))
     qcuda.build(qcuda.sources())
@@ -501,10 +759,15 @@ def main() -> int:
     f32_k = want_k & {"composite", "composite_bwd", "slab_gather"}
     for label, n_alive, cap, k_cap in (("A", 80_000, 131_072, 256),
                                        ("B", 288_000, 327_680, 2048)):
-        if "composite_bwd_mixed" in want_k and not args.one_sweep:
-            m_args = step_inputs(n_alive, cap, k_cap, args.seed, mixed=True)
-            rows += mixed_rows(label, m_args)
-            del m_args
+        mixed_k = want_k & {"composite_mixed", "composite_bwd_mixed"}
+        if mixed_k and not args.one_sweep:
+            f_args, m_args = step_inputs(n_alive, cap, k_cap, args.seed,
+                                         mixed=True)
+            if "composite_mixed" in want_k:
+                rows += mixed_fwd_rows(label, f_args, args.parent, args.sass)
+            if "composite_bwd_mixed" in want_k:
+                rows += mixed_rows(label, m_args)
+            del f_args, m_args
             torch.cuda.empty_cache()
         if not (f32_k or args.one_sweep):
             continue
