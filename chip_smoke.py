@@ -68,6 +68,25 @@ trainer. the port's ``Trainer`` on a room RGB-D dataset written by
    more steps. It fails unless a refine added gaussians, the capacity grew,
    all three kernels launched, at least 150 steps ran at 1296x840, every
    loss was finite and eval PSNR rose.
+dispatch. multi-step dispatch (``engine/scan_runner.py``): (a) one chunk as
+   a CUDA graph of the step against the per-step loop from one state, perm
+   and backgrounds, on scene A (10 steps), scene B at K=2048 (4, the
+   chunked kernels) and scene A with ``mixed_precision`` (4): per-step
+   losses within max(1e-4, twice two eager runs' spread), each replay's
+   camera, the first moments after one replayed step within 1e-3 of max,
+   the Adam counts, step counter and visibility counts equal, parameters
+   within 4 n lr, every kernel counted once per replayed step, and those
+   counts (the capture's record times the replays) equal to the kernel
+   launches ``torch.profiler`` sees in a chunk; (b) the trainer phase's
+   run with ``steps_per_dispatch=0`` (chunks of 10): eval PSNR must rise
+   and land within 1.0 dB of the per-step run's, ms per step per bucket
+   beside the per-step path's, graphs and pool bytes, and with
+   ``--profile`` one chunk's table, idle share and the same count check;
+   (c) ``cli train
+   --supervise`` at half resolution with its child killed at step 60
+   (``QED_CRASH_ONCE_AT``): one restart, resumed from step 50, the journal
+   matched; (d) ``cli train-multi``'s trainer on two names of the room,
+   100 steps each, the graph pool before and after each scene's capture.
 
 Each render or train phase resets the kernels' launch counts, drives the
 path, and fails unless every kernel of the path launched at least once per
@@ -85,7 +104,8 @@ of the loss, where the two paths' gradients differ by that pixel's whole
 weight, is counted and masked out of both.
 
 Prints the bench line, the tools' times, ``render_ms_per_frame`` /
-``train_ms_per_step`` / ``bench`` / ``trainer`` and ``kernels`` JSON lines,
+``train_ms_per_step`` / ``bench`` / ``trainer`` / ``dispatch`` and
+``kernels`` JSON lines,
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. The gather's row in ``kernels`` is its
 rank mode, the one the main path launches; the gather mode's numbers are
@@ -102,8 +122,10 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1873,12 +1895,32 @@ def same_state(a, b):
     return all(flat)
 
 
-def phase_trainer(seed, profile_dir):
+def card_state():
+    """The card's SM clock, power draw and temperature now (a phase's
+    times are comparable only at the same clocks)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def write_room(root):
+    """The room dataset the trainer and dispatch phases train on: seconds
+    of ray casts."""
+    from qed_splatter_tpu_torch import testing
+
+    t0 = time.perf_counter()
+    testing.write_room_dataset(root, num_frames=TRAINER_FRAMES, width=W,
+                               height=H, sparse_ply=TRAINER_POINTS,
+                               workers=min(8, os.cpu_count() or 1))
+    return time.perf_counter() - t0
+
+
+def phase_trainer(seed, profile_dir, root, t_data):
     import dataclasses
     import tempfile
     from pathlib import Path
 
-    from qed_splatter_tpu_torch import testing
     from qed_splatter_tpu_torch.data.dataset import FullImageDatamanager
     from qed_splatter_tpu_torch.engine import checkpoint as ckpt
     from qed_splatter_tpu_torch.engine.train_step import make_train_step
@@ -1888,15 +1930,9 @@ def phase_trainer(seed, profile_dir):
 
     print(f"phase trainer: room dataset {W}x{H}, {TRAINER_FRAMES} frames, "
           f"{TRAINER_POINTS} seed points, {TRAINER_STEPS} steps + a resume "
-          f"of {TRAINER_RESUME}", flush=True)
+          f"of {TRAINER_RESUME} (card: {card_state()})", flush=True)
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp) / "room"
-        t0 = time.perf_counter()
-        testing.write_room_dataset(root, num_frames=TRAINER_FRAMES, width=W,
-                                   height=H, sparse_ply=TRAINER_POINTS,
-                                   workers=min(8, os.cpu_count() or 1))
-        t_data = time.perf_counter() - t0
         trace_dir = Path(tmp) / "trace"
         cfg = trainer_config(str(root), str(Path(tmp) / "out"), seed,
                              str(trace_dir))
@@ -1932,7 +1968,8 @@ def phase_trainer(seed, profile_dir):
             "slab_gather ranks": tiles.SLAB_GATHER.variant_launches.get(
                 "ranks", 0)}
         print(f"  {TRAINER_STEPS} steps in {t_train:.2f} s with their "
-              f"refines, evals and checkpoints; launches {launches}, "
+              f"refines, evals and checkpoints (card after: {card_state()}); "
+              f"launches {launches}, "
               f"{variants}")
         check(all(v > 0 for v in launches.values()),
               "every kernel launched in the trainer's run")
@@ -2079,6 +2116,485 @@ def phase_trainer(seed, profile_dir):
             "trained_state_kinks": kinks, "alpha_mask_flips": 0}
 
 
+# --------------------------------------------------------- dispatch phase
+
+DISPATCH_CASES = (      # label, alive, capacity, K, steps, mixed_precision
+    ("A", 80_000, 131_072, 256, 10, False),
+    ("B", 288_000, 327_680, 2048, 4, False),
+    ("A mixed", 80_000, 131_072, 256, 4, True),
+)
+SUPERVISED_STEPS, SUPERVISED_SAVE, SUPERVISED_CRASH = 100, 50, 60
+MULTI_STEPS = 100
+
+
+def dispatch_items(n_cams, seed):
+    """Orbit frames of the synthetic scenes as dataset items: uniform RGB
+    (uint8) and depth uniform in 0.5-4.0, as ``train_batch``'s."""
+    from qed_splatter_tpu_torch.ops.camera import Camera
+
+    rng = np.random.default_rng(seed)
+    items = []
+    for i, (c2w, K) in enumerate(cameras(n_cams)):
+        cam = Camera(fx=float(K[0, 0]), fy=float(K[1, 1]), cx=float(K[0, 2]),
+                     cy=float(K[1, 2]), width=W, height=H,
+                     c2w=np.asarray(c2w, np.float32), cam_idx=i)
+        items.append({"camera": cam, "cam_idx": i, "image": rng.integers(
+            0, 256, (H, W, 3), dtype=np.uint8), "depth_image": rng.uniform(
+                0.5, 4.0, (H, W, 1)).astype(np.float32)})
+    return items
+
+
+def eager_chunk(runner, state, perm, bgs):
+    """The per-step loop on the runner's step, frames and backgrounds:
+    (state, per-step losses, ms per step by CUDA events)."""
+    import dataclasses
+
+    data = runner.dataset.data
+    gen = torch.Generator(device="cuda")
+    losses = []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for i, p in enumerate(perm):
+        batch = {"c2w": data["c2w"][p], "K": data["K"][p],
+                 "cam_idx": int(data["cam_idx"][p]),
+                 "rgb": runner._unit[data["rgb_u8"][p].long()],
+                 "depth": data["depth"][p]}
+        inp = runner.step.inputs(batch, gen, state.step)
+        inp.background = bgs[i]
+        losses.append(runner.step.run(state, inp)["loss"])
+        state = dataclasses.replace(state, step=state.step + 1)
+    end.record()
+    torch.cuda.synchronize()
+    return state, [float(x) for x in losses], start.elapsed_time(end) / len(
+        perm)
+
+
+def graph_chunk(runner, state, perm, bgs):
+    """One runner call: (state, [n, M] metrics on the host, ms per step by
+    CUDA events)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    state, metrics = runner(state, perm, bgs)
+    end.record()
+    torch.cuda.synchronize()
+    return state, dict(zip(runner.names, metrics.cpu().numpy().T)), \
+        start.elapsed_time(end) / len(perm)
+
+
+# the device function each wrapper launches once per host call, by the
+# name torch.profiler gives its kernel
+DEVICE_FNS = {"qed_composite_tiles": "composite_kernel<",
+              "qed_composite_tiles_bwd": "composite_bwd_kernel<",
+              "qed_composite_tiles_mixed": "composite_mixed_kernel<",
+              "qed_composite_tiles_bwd_mixed": "composite_bwd_mixed_kernel<",
+              "qed_slab_gather": "slab_gather_kernel<"}
+
+
+def kernel_events(prof, kernels):
+    """Launches of each wrapper's device function that ``prof`` saw run on
+    the card, by symbol: what a graph's replays really launched."""
+    pats = {k.symbol: re.compile(r"\b" + re.escape(DEVICE_FNS[k.symbol]))
+            for k in kernels}
+    seen = dict.fromkeys(pats, 0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for sym, pat in pats.items():
+                seen[sym] += bool(pat.search(e.name))
+    return seen
+
+
+def profiled_launches(fn, kernels):
+    """Runs ``fn()`` under ``torch.profiler``: (launches each wrapper
+    counted, launches the profiler saw), by symbol."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = {k.symbol: k.launches for k in kernels}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counted = {k.symbol: k.launches - before[k.symbol] for k in kernels}
+    return counted, kernel_events(prof, kernels)
+
+
+def dispatch_case(label, n_alive, capacity, k_cap, n, mixed, seed):
+    """(a): a chunk as a CUDA graph against the per-step loop from one state,
+    perm and backgrounds."""
+    from qed_splatter_tpu_torch.configs import ModelConfig, \
+        default_optimizers
+    from qed_splatter_tpu_torch.engine.checkpoint import copy_state
+    from qed_splatter_tpu_torch.engine.optim import GroupOptimizers
+    from qed_splatter_tpu_torch.engine.scan_runner import DeviceDataset, \
+        make_scan_steps
+    from qed_splatter_tpu_torch.engine.trainer import downscale_depth, \
+        downscale_image
+    from qed_splatter_tpu_torch.models.splatfacto import background_color
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+    from qed_splatter_tpu_torch.ops import tiles
+
+    t0 = time.perf_counter()
+    cfg = ModelConfig(camera_opt_mode="SO3xR3", max_per_tile=k_cap,
+                      background_color="random", mixed_precision=mixed)
+    optims = GroupOptimizers(default_optimizers())
+    state0 = spread_state(n_alive, capacity, seed, optims)
+    ds = DeviceDataset(dispatch_items(4, seed), 1, downscale_image,
+                       downscale_depth, "cuda")
+    runner = make_scan_steps(cfg, optims, ds, n, device="cuda")
+    one = make_scan_steps(cfg, optims, ds, 1, device="cuda")
+    perm = np.random.default_rng(seed).integers(0, 4, n).tolist()
+    bgs = torch.stack([background_color(cfg, "cuda", True, torch.Generator(
+        device="cuda").manual_seed(seed + 31 + i)) for i in range(n)])
+    # first calls capture (their step 1 runs eagerly): on throwaway copies
+    runner(copy_state(state0, "cuda"), perm, bgs)
+    one(copy_state(state0, "cuda"), perm[:1], bgs[:1])
+    torch.cuda.synchronize()
+    print(f"  case {label}: {n_alive} alive / {capacity}, K={k_cap}, "
+          f"{'mixed, ' if mixed else ''}{n} steps; set-up and capture "
+          f"{time.perf_counter() - t0:.2f} s, graph pool "
+          f"{runner.pool_bytes} bytes", flush=True)
+
+    e1, losses1, eager_ms = eager_chunk(runner, copy_state(state0, "cuda"),
+                                        perm, bgs)
+    e2, losses2, _ = eager_chunk(runner, copy_state(state0, "cuda"), perm,
+                                 bgs)
+    kernels = [rp.COMPOSITE, rp.COMPOSITE_BWD, tiles.SLAB_GATHER,
+               rp.COMPOSITE_MIXED, rp.COMPOSITE_BWD_MIXED]
+    for kern in kernels:
+        kern.reset()
+    replays0 = runner.replays
+    g, rows, graph_ms = graph_chunk(runner, copy_state(state0, "cuda"), perm,
+                                    bgs)
+    launches = {k.symbol: k.launches for k in kernels if k.launches}
+    variants = {f"{k.symbol} {v}": c for k in kernels
+                for v, c in k.variant_launches.items()}
+    spread = max(abs(a - b) / abs(b) for a, b in zip(losses1, losses2))
+    err = float(max(abs(a - b) / abs(b)
+                    for a, b in zip(rows["loss"], losses1)))
+    bar = max(1e-4, 2 * spread)
+    print(f"    per-step loss: graph against eager {err:.3e}, eager against "
+          f"eager {spread:.3e} (bar {bar:.3e}); graph {graph_ms:.3f} ms per "
+          f"step, eager {eager_ms:.3f} (CUDA events); launches {launches} "
+          f"{variants} in {runner.replays - replays0} replays")
+    check(err <= bar, f"case {label}: per-step losses within {bar:.1e}")
+    check(rows["cam_idx"].tolist() == [float(p) for p in perm],
+          f"case {label}: each replay read its camera")
+    check(all(np.isfinite(rows["loss"])), f"case {label}: finite losses")
+    # the path's kernels, every one launched inside the replays
+    want = ([rp.COMPOSITE_MIXED, rp.COMPOSITE_BWD_MIXED] if mixed
+            else [rp.COMPOSITE, rp.COMPOSITE_BWD]) + [tiles.SLAB_GATHER]
+    check(runner.replays - replays0 == n
+          and all(k.launches == n for k in want),
+          f"case {label}: every kernel counted once per replayed step")
+    if k_cap > rp.K_CHUNK:
+        check(want[0].variant_launches.get("chunked") == n
+              and want[1].variant_launches.get("chunked") == n,
+              f"case {label}: the chunked kernels replayed")
+    # the replays' counts are the capture's record times the replays: hold
+    # them to the kernels the profiler saw run in another chunk of n
+    counted, seen = profiled_launches(
+        lambda: runner(copy_state(state0, "cuda"), perm, bgs), want)
+    print(f"    a profiled chunk of {n} replays: counted {counted}, the "
+          f"profiler saw {seen}")
+    check(counted == seen == {k.symbol: n for k in want},
+          f"case {label}: the profiler saw each counted kernel launch")
+
+    # each group's first moment after one replayed step (mu = 0.1 g): the
+    # gradient bar, or twice what two eager steps differ by where a pixel
+    # within rounding of a kink of the loss takes another branch
+    g1, _, _ = graph_chunk(one, copy_state(state0, "cuda"), perm[:1],
+                           bgs[:1])
+    e1s, _, _ = eager_chunk(one, copy_state(state0, "cuda"), perm[:1],
+                            bgs[:1])
+    e2s, _, _ = eager_chunk(one, copy_state(state0, "cuda"), perm[:1],
+                            bgs[:1])
+
+    def moments(st):
+        return {**{grp: st.opt_state[grp]["mu"] for grp in st.opt_state},
+                "camera_opt": st.camera_opt_state["mu"]}
+
+    def mu_errs(x, y):
+        return {k: float((x[k] - y[k]).abs().max()) / max(
+            float(y[k].abs().max()), 1e-30) for k in y}
+
+    mu_err = mu_errs(moments(g1), moments(e1s))
+    mu_spread = mu_errs(moments(e2s), moments(e1s))
+    print(f"    first moments after one replayed step, of each max: graph "
+          f"{ {k: f'{v:.2e}' for k, v in mu_err.items()} }, eager against "
+          f"eager { {k: f'{v:.2e}' for k, v in mu_spread.items()} }")
+    check(all(v <= max(BWD_TOL, 2 * mu_spread[k])
+              for k, v in mu_err.items()),
+          f"case {label}: mu after step 1 within {BWD_TOL} of max")
+
+    # after the chunk: exact counts, parameters near the eager ones
+    counts_ok = all(int(g.opt_state[k]["count"]) == int(e1.opt_state[k][
+        "count"]) == n for k in g.opt_state) and int(
+        g.camera_opt_state["count"]) == int(e1.camera_opt_state["count"])
+    vis_diff = int((g.stats.vis_count != e1.stats.vis_count).sum())
+    vis_spread = int((e2.stats.vis_count != e1.stats.vis_count).sum())
+    print(f"    Adam counts equal {counts_ok}; step counter "
+          f"{int(runner.step_counter)}; vis_count slots differing: graph "
+          f"{vis_diff}, eager against eager {vis_spread}")
+    check(counts_ok and int(runner.step_counter) == g.step == e1.step,
+          f"case {label}: the Adam counts and the step counter equal")
+    check(vis_diff <= vis_spread, f"case {label}: vis_count equal (as "
+          "equal as two eager runs)")
+    far = {}
+    for grp in g.opt_state:
+        lr = optims.configs[grp].lr
+        d = float((getattr(g.params, grp) - getattr(e1.params, grp)).abs()
+                  .max())
+        far[grp] = d / (4 * n * lr)
+    print(f"    params after the chunk, max |graph - eager| / (4 n lr): "
+          f"{ {k: f'{v:.2e}' for k, v in far.items()} }")
+    check(all(v <= 1.0 for v in far.values()),
+          f"case {label}: every parameter within 4 n lr of the eager one")
+    out = {"steps": n, "loss_rel_err": err, "eager_spread": spread,
+           "graph_ms_per_step": graph_ms, "eager_ms_per_step": eager_ms,
+           "launches": launches, "variants": variants, "mu_err": mu_err,
+           "pool_bytes": runner.pool_bytes}
+    del runner, one, state0, g, e1, e2, g1, e1s, e2s
+    torch.cuda.empty_cache()
+    return out
+
+
+class TimedRunner:
+    """A scan runner whose calls are synchronized and timed per step, by the
+    dataset's width."""
+
+    def __init__(self, runner, record, width):
+        self.runner, self.record, self.width = runner, record, width
+
+    def __call__(self, state, perm, bgs):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = self.runner(state, perm, bgs)
+        torch.cuda.synchronize()
+        self.record["ms"].setdefault(self.width, []).append(
+            (time.perf_counter() - t1) * 1e3 / len(perm))
+        self.record["loss"] += out[1][:, self.runner.names.index(
+            "loss")].tolist()
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.runner, name)
+
+
+def phase_dispatch(seed, profile_dir, root, per_step):
+    """(a) graph against eager chunks; (b) the room trainer through the
+    graph path; (c) ``cli train --supervise`` through a killed child;
+    (d) ``train-multi`` of two copies of the room."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    from qed_splatter_tpu_torch import cli
+    from qed_splatter_tpu_torch.configs import TrainerConfig
+    from qed_splatter_tpu_torch.data.dataset import FullImageDatamanager
+    from qed_splatter_tpu_torch.engine import checkpoint as ckpt
+    from qed_splatter_tpu_torch.engine import scan_runner
+    from qed_splatter_tpu_torch.engine.journal import AttemptJournal
+    from qed_splatter_tpu_torch.engine.multi_scene import MultiSceneTrainer
+    from qed_splatter_tpu_torch.engine.trainer import Trainer
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+    from qed_splatter_tpu_torch.ops import tiles
+
+    print(f"phase dispatch: multi-step dispatch as a CUDA graph of the step "
+          f"(card: {card_state()})", flush=True)
+    t_phase = time.perf_counter()
+    out = {"cases": {}}
+    for case in DISPATCH_CASES:
+        out["cases"][case[0]] = dispatch_case(*case, seed)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # --- (b) the room trainer through the graph path
+        cfg = dataclasses.replace(
+            trainer_config(str(root), str(Path(tmp) / "graph"), seed),
+            steps_per_dispatch=0)
+        dm = FullImageDatamanager(cfg.data, seed=seed)
+        trainer = Trainer(cfg, datamanager=dm)
+        chunk = trainer._dispatch_chunk()
+        check(trainer._use_scan() and chunk == 10,
+              f"the room trainer picks multi-step dispatch, chunk {chunk}")
+        record = {"ms": {}, "loss": []}
+        runners = {}
+        orig = trainer._get_scan_fn
+
+        def get(*args, **kwargs):
+            runner, ds = orig(*args, **kwargs)
+            runners[id(runner)] = runner
+            return TimedRunner(runner, record, ds.width), ds
+        trainer._get_scan_fn = get
+        first = trainer.eval_all(0)
+        kernels = (rp.COMPOSITE, rp.COMPOSITE_BWD, tiles.SLAB_GATHER)
+        for kern in kernels:
+            kern.reset()
+        t0 = time.perf_counter()
+        trainer.train(max_steps=TRAINER_STEPS, finalize=False)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = {k.symbol: k.launches for k in kernels}
+        final = trainer.eval_all(TRAINER_STEPS)
+        graphs = sum(r.captures for r in runners.values())
+        pool = scan_runner.pool_bytes(scan_runner.graph_pool("cuda"), "cuda")
+        print(f"  (b) {TRAINER_STEPS} steps through the graph path in "
+              f"{t_train:.2f} s with their refines, evals and checkpoints "
+              f"(card after: {card_state()}); "
+              f"{graphs} graphs captured ({len(runners)} runners), "
+              f"launches {launches}; pool {pool} bytes")
+        for width, ms in sorted(record["ms"].items()):
+            ps = per_step["ms_per_step"].get(str(width))
+            print(f"    bucket {width} px wide: {len(ms)} chunks, median "
+                  f"{statistics.median(ms):.3f} ms per step (min "
+                  f"{min(ms):.3f}, max {max(ms):.3f}); the per-step path "
+                  f"{ps if ps is None else round(ps, 3)}")
+        print(f"    eval_all psnr {first['rgb_psnr']:.3f} -> "
+              f"{final['rgb_psnr']:.3f} (the per-step run "
+              f"{per_step['eval_psnr'][1]:.3f}); gaussians "
+              f"{final['gaussian_count']}, capacity "
+              f"{trainer.state.params.capacity}, K per bucket "
+              f"{trainer._k_by_d}")
+        check(len(record["loss"]) == TRAINER_STEPS
+              and all(math.isfinite(x) for x in record["loss"]),
+              f"all {TRAINER_STEPS} graph-path losses finite")
+        # the evals render too: the backward counts the steps alone
+        check(rp.COMPOSITE_BWD.launches == TRAINER_STEPS
+              and min(launches.values()) >= TRAINER_STEPS,
+              "every kernel launched once per step, replays counted")
+        check(final["rgb_psnr"] > first["rgb_psnr"], "graph path: eval PSNR "
+              "rose")
+        check(abs(final["rgb_psnr"] - per_step["eval_psnr"][1]) <= 1.0,
+              "graph path: eval PSNR within 1.0 dB of the per-step run")
+        check(len(metrics_rows(trainer.run_dir, "grow")) >= 1,
+              "graph path: the capacity grew")
+        idle = None
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            # one chunk of replays at full resolution (its graph exists)
+            trainer._get_scan_fn = orig
+            before = {k.symbol: k.launches for k in kernels}
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                trainer.train(max_steps=TRAINER_STEPS + chunk,
+                              finalize=False)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t1) * 1e3
+            counted = {k.symbol: k.launches - before[k.symbol]
+                       for k in kernels}
+            seen = kernel_events(prof, kernels)
+            print(f"    the profiled chunk: counted {counted}, the profiler "
+                  f"saw {seen}")
+            check(counted == seen, "graph path: the profiler saw each "
+                  "counted kernel launch")
+            busy_ms = sum(e.self_device_time_total for e in prof.events()
+                          if e.device_type
+                          == torch.autograd.DeviceType.CUDA) / 1e3
+            idle = 1 - busy_ms / wall_ms
+            path = f"{profile_dir}/profile_dispatch_chunk.txt"
+            with open(path, "w") as f:
+                f.write(prof.key_averages().table(sort_by="cuda_time_total",
+                                                  row_limit=50))
+            print(f"    profile of one chunk ({chunk} steps at {W}x{H}, "
+                  f"with its callbacks) written to {path}: device busy "
+                  f"{busy_ms / chunk:.3f} ms per step of "
+                  f"{wall_ms / chunk:.3f} ms wall (idle share {idle:.3f})")
+        out["trainer"] = {
+            "ms_per_step": {str(w): statistics.median(v)
+                            for w, v in record["ms"].items()},
+            "eval_psnr": [first["rgb_psnr"], final["rgb_psnr"]],
+            "graphs": graphs, "launches": launches, "pool_bytes": pool,
+            "idle_share": idle}
+        del trainer, runners, orig, get
+        torch.cuda.empty_cache()
+
+        # --- (c) the supervisor through a killed child, half resolution
+        half = ["--model.num-downscales", "1", "--model.resolution-schedule",
+                "100000"]
+        args = ["--data", str(root), "--max-num-iterations",
+                str(SUPERVISED_STEPS), "--steps-per-save",
+                str(SUPERVISED_SAVE), "--steps-per-eval-image", "0",
+                "--steps-per-eval-all-images", "0", "--output-dir", tmp,
+                "--vis", "none", "--seed", str(seed), *half]
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "qed_splatter_tpu_torch.cli", "train",
+             *args, "--experiment-name", "supervised", "--supervise",
+             "--max-restarts", "2"],
+            env=dict(os.environ, QED_CRASH_ONCE_AT=str(SUPERVISED_CRASH)),
+            capture_output=True, text=True, timeout=400)
+        lines = [x for x in res.stdout.splitlines()
+                 if x.startswith(("SUPERVISOR", "TEST HOOK", "Resumed",
+                                  "Trained"))]
+        print(f"  (c) supervised run rc {res.returncode} in "
+              f"{time.perf_counter() - t0:.2f} s: {lines}")
+        if res.returncode:
+            print(res.stdout[-3000:] + res.stderr[-3000:])
+        run_dir = Path(tmp) / "supervised"
+        journal = AttemptJournal(run_dir / "attempt_journal.jsonl")
+        recs = journal.records()
+        latest = ckpt.latest_checkpoint(run_dir / "ckpts")
+        check(res.returncode == 0 and res.stdout.count(
+            "SUPERVISOR: training process exited") == 1
+            and "completed after 1 restart" in res.stdout,
+            "the supervised run completed after exactly one restart")
+        check(f"step-{SUPERVISED_SAVE:09d}" in " ".join(
+            x for x in lines if x.startswith("Resumed")),
+            f"the restart resumed from step {SUPERVISED_SAVE}")
+        check(latest is not None
+              and latest.name == f"step-{SUPERVISED_STEPS:09d}",
+              "the supervised run reached its last checkpoint")
+        check(recs and not journal.crashed(), f"the journal holds "
+              f"{len(recs)} records, all matched")
+        out["supervisor"] = {"rc": res.returncode, "journal_records":
+                             len(recs), "wall_s": time.perf_counter() - t0}
+
+        # --- (d) train-multi: two copies of the room under two names
+        scenes = []
+        for name in ("roomA", "roomB"):
+            (Path(tmp) / name).symlink_to(root, target_is_directory=True)
+            scenes.append(str(Path(tmp) / name))
+        mcfg, _ = cli.build_trainer_config(
+            ["--output-dir", tmp, "--experiment-name", "multi",
+             "--max-num-iterations", str(MULTI_STEPS), "--steps-per-save",
+             str(MULTI_STEPS), "--steps-per-eval-image", "0",
+             "--steps-per-eval-all-images", "0", "--seed", str(seed),
+             *half])
+        for kern in kernels:
+            kern.reset()
+        before = scan_runner.pool_bytes(scan_runner.graph_pool("cuda"),
+                                        "cuda")
+        t0 = time.perf_counter()
+        mst = MultiSceneTrainer(mcfg, scenes)
+        states = mst.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        per_scene = {name: [r.pool_bytes for r in tr._runners.values()]
+                     for name, tr in mst.trainers.items()}
+        pool = scan_runner.pool_bytes(scan_runner.graph_pool("cuda"), "cuda")
+        print(f"  (d) train-multi of {list(states)} in {wall:.2f} s: steps "
+              f"{ {k: v.step for k, v in states.items()} }, launches "
+              f"{ {k.symbol: k.launches for k in kernels} }; graph pool "
+              f"{before} bytes before, after each scene's capture "
+              f"{per_scene}, now {pool}")
+        check(all(v.step == MULTI_STEPS for v in states.values())
+              and all(bool(torch.isfinite(v.params.means).all())
+                      for v in states.values())
+              and all((Path(tmp) / "multi" / n / "splat.ply").exists()
+                      for n in states),
+              "train-multi completed both scenes")
+        check(kernels[1].launches == 2 * MULTI_STEPS,
+              "train-multi: one backward per step of each scene")
+        out["multi"] = {"wall_s": wall, "pool_bytes_before": before,
+                        "pool_bytes_by_scene": per_scene,
+                        "pool_bytes": pool}
+        del mst, states
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  dispatch phase wall time {out['wall_s']:.2f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2152,10 +2668,14 @@ def main() -> int:
     bench_line = phase_bench(args.seed)
     kernels += phase_tools()
 
-    trainer = phase_trainer(args.seed, args.profile)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "room"
+        t_data = write_room(root)
+        trainer = phase_trainer(args.seed, args.profile, root, t_data)
+        dispatch = phase_dispatch(args.seed, args.profile, root, trainer)
     print(json.dumps({"render_ms_per_frame": frames,
                       "train_ms_per_step": steps, "bench": bench_line,
-                      "trainer": trainer}))
+                      "trainer": trainer, "dispatch": dispatch}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# every CudaKernel made, so a CUDA graph's replays can add the launches its
+# capture recorded (engine/scan_runner.py)
+KERNELS: List["CudaKernel"] = []
 # nvcc's output (-Xptxas -v) by source name, followed by the defines if any
 BUILD_LOGS: Dict[str, str] = {}
 
@@ -122,10 +125,19 @@ class CudaKernel:
         # launches by named code path inside the kernel (e.g. "chunked")
         self.variant_launches: Dict[str, int] = {}
         self._fn = None
+        KERNELS.append(self)
 
     def reset(self) -> None:
         self.launches = 0
         self.variant_launches = {}
+
+    def add(self, launches: int, variants: Dict[str, int]) -> None:
+        """Count launches made without a host call: the replays of a CUDA
+        graph whose capture called this kernel (negative to take back the
+        capture's own calls, which launched nothing)."""
+        self.launches += launches
+        for k, n in variants.items():
+            self.variant_launches[k] = self.variant_launches.get(k, 0) + n
 
     def __call__(self, *args, variant: str = "") -> None:
         if self._fn is None:

@@ -1,7 +1,8 @@
 """Densification and culling at fixed capacity (port of
 ``engine/densify.py``).
 
-- :class:`DensifyStats` / :func:`accumulate_stats`: per-gaussian
+- :class:`DensifyStats` / :func:`accumulate_stats` (and
+  :func:`accumulate_stats_`, in place): per-gaussian
   screen-space gradient statistics accumulated between refines
   (splatfacto's ``xys_grad_norm``, ``vis_counts`` and ``max_2Dsize``).
 - :func:`refine`: splatfacto's ``refinement_after`` without dynamic tensor
@@ -62,6 +63,16 @@ def accumulate_stats(
             torch.where(vis, radii.to(torch.float32) / float(max_hw), 0.0),
         ),
     )
+
+
+@torch.no_grad()
+def accumulate_stats_(stats: DensifyStats, absgrad: torch.Tensor,
+                      radii: torch.Tensor, max_hw: int) -> None:
+    """:func:`accumulate_stats` written into ``stats``'s own tensors (the
+    graph-captured step keeps them at fixed addresses)."""
+    new = accumulate_stats(stats, absgrad, radii, max_hw)
+    for f in dataclasses.fields(DensifyStats):
+        getattr(stats, f.name).copy_(getattr(new, f.name))
 
 
 class RefineInfo(NamedTuple):

@@ -12,7 +12,9 @@ scale_by_learning_rate(schedule))`` written out:
 
 A group's state is a plain dict ``{"count", "mu", "nu"}`` (count an int32
 0-d tensor), so densification can reset the moments of re-seeded slots in
-place. Updates are in place: the parameter and its moments are modified.
+place. Updates are in place: the parameter, its moments and the count are
+modified, and no call builds a tensor from a host value, so the update can
+be captured in a CUDA graph and replayed.
 """
 
 from __future__ import annotations
@@ -45,15 +47,15 @@ def make_schedule(cfg: AdamConfig) -> Callable[[object], torch.Tensor]:
             warm = cfg.lr_pre_warmup + (lr_init - cfg.lr_pre_warmup) * (
                 torch.sin(0.5 * math.pi * frac))
         else:
-            warm = torch.tensor(lr_init, dtype=F32, device=dev)
+            warm = torch.full((), lr_init, dtype=F32, device=dev)
         if lr_final == lr_init:
-            decayed = torch.tensor(lr_init, dtype=F32, device=dev)
+            decayed = torch.full((), lr_init, dtype=F32, device=dev)
         else:
             t = torch.clamp(
                 (step - cfg.warmup_steps)
                 / max(cfg.max_steps - cfg.warmup_steps, 1), 0.0, 1.0)
-            log_a = torch.log(torch.tensor(lr_init, dtype=F32, device=dev))
-            log_b = torch.log(torch.tensor(lr_final, dtype=F32, device=dev))
+            log_a = torch.log(torch.full((), lr_init, dtype=F32, device=dev))
+            log_b = torch.log(torch.full((), lr_final, dtype=F32, device=dev))
             decayed = torch.exp((1.0 - t) * log_a + t * log_b)
         return torch.where(step < cfg.warmup_steps, warm, decayed)
 
@@ -71,17 +73,17 @@ def adam_init(param: torch.Tensor) -> Dict[str, torch.Tensor]:
 @torch.no_grad()
 def adam_update(grad: torch.Tensor, state: Dict, cfg: AdamConfig,
                 schedule: Callable) -> torch.Tensor:
-    """One Adam step of one group: updates ``state`` in place and returns
-    the parameter update (optax's ``updates``)."""
+    """One Adam step of one group: updates ``state`` in place (the count
+    too: a graph replay reads the count it incremented) and returns the
+    parameter update (optax's ``updates``)."""
     count = state["count"]
     lr = schedule(count)                 # read before the increment
-    count_inc = count + 1
+    count.add_(1)
     mu = state["mu"].mul_(B1).add_((1.0 - B1) * grad)
     nu = state["nu"].mul_(B2).add_((1.0 - B2) * (grad * grad))
-    c = count_inc.to(F32)
-    bc1 = 1.0 - torch.pow(torch.tensor(B1, dtype=F32, device=c.device), c)
-    bc2 = 1.0 - torch.pow(torch.tensor(B2, dtype=F32, device=c.device), c)
-    state["count"] = count_inc
+    c = count.to(F32)
+    bc1 = 1.0 - torch.pow(torch.full((), B1, dtype=F32, device=c.device), c)
+    bc2 = 1.0 - torch.pow(torch.full((), B2, dtype=F32, device=c.device), c)
     return (-lr) * ((mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps))
 
 

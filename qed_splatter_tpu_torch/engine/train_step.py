@@ -13,9 +13,11 @@ One call does, for one camera, in the JAX step's order:
 - the per-group Adam, then the camera Adam;
 - the densification statistics.
 
-Parameters and Adam moments are updated **in place**: the returned
-:class:`TrainState` holds the same parameter and moment tensors as the one
-passed in, with new statistics and step. ``cfg.mixed_precision`` takes the
+Parameters, Adam moments and counts and the statistics are updated **in
+place**: the returned :class:`TrainState` holds the same tensors as the one
+passed in, with the next step. The body (:meth:`TrainStep.run`) is
+capture-clean, so ``engine/scan_runner.py`` replays it as a CUDA graph.
+``cfg.mixed_precision`` takes the
 bf16 operand compositing kernels. The bilateral grid is not ported and
 raises.
 """
@@ -31,7 +33,7 @@ import torch
 from qed_splatter_tpu_torch import not_ported, resolve_device
 from qed_splatter_tpu_torch.configs import ModelConfig
 from qed_splatter_tpu_torch.engine.densify import DensifyStats, \
-    accumulate_stats
+    accumulate_stats_
 from qed_splatter_tpu_torch.engine.optim import GroupOptimizers, adam_init
 from qed_splatter_tpu_torch.models.camera_opt import (
     apply_camera_opt,
@@ -42,8 +44,13 @@ from qed_splatter_tpu_torch.models.gaussians import (
     GROUPS,
     GaussianParams,
 )
-from qed_splatter_tpu_torch.models.splatfacto import render, total_loss
+from qed_splatter_tpu_torch.models.splatfacto import (
+    background_color,
+    render,
+    total_loss,
+)
 from qed_splatter_tpu_torch.ops.rasterize import absgrad_scatter
+from qed_splatter_tpu_torch.ops.ssim import ssim_bands
 
 
 def refuse_bilateral_grid() -> NotImplementedError:
@@ -120,12 +127,35 @@ class StepGrads:
     absgrad: Optional[torch.Tensor]  # [C, 2] per-gaussian |grad| sums
 
 
+@dataclasses.dataclass
+class StepInputs:
+    """One step's inputs, every one a tensor on the step's device."""
+
+    c2w: torch.Tensor              # [3or4, 4]
+    K: torch.Tensor                # [3, 3]
+    cam_idx: torch.Tensor          # [1] integer: the row of camera_opt
+    rgb: torch.Tensor              # [H, W, 3] float in [0, 1]
+    depth: Optional[torch.Tensor]  # [H, W, 1] (has_depth)
+    mask: Optional[torch.Tensor]   # [H, W, 1] (has_mask)
+    background: torch.Tensor       # [3] this step's background colour
+    step: torch.Tensor             # 0-d int32 step counter, +1 per run
+
+
 def _zeros_if_none(g, like):
     return torch.zeros_like(like) if g is None else g
 
 
 class TrainStep:
-    """The step for one (width, height) bucket; see :func:`make_train_step`."""
+    """The step for one (width, height) bucket; see :func:`make_train_step`.
+
+    :meth:`run` is the step's body, and it is capture-clean: it reads every
+    input from :class:`StepInputs` tensors, writes every result in place
+    (parameters, moments, Adam counts, statistics, the step counter), makes
+    no host sync and builds no tensor from a host value. So one replay of a
+    CUDA graph captured around it equals one eager call
+    (``engine/scan_runner.py``). ``__call__`` is the per-step form: the
+    host batch moved to the device and a background drawn, then :meth:`run`.
+    """
 
     def __init__(self, cfg: ModelConfig, optims: GroupOptimizers, width: int,
                  height: int, has_depth: bool, has_mask: bool = False,
@@ -143,23 +173,37 @@ class TrainStep:
         ts = cfg.tile_size
         self.num_tiles = (-(-width // ts)) * (-(-height // ts))
         self.max_hw = max(width, height)
+        # held here: a CUDA graph of the step reads them and keeps no input
+        # alive, and SSIM's own cache may drop them
+        self.ssim_bands = ssim_bands(width, height, device=self.device)
 
-    def _batch(self, batch: Dict):
+    def inputs(self, batch: Dict, generator: Optional[torch.Generator],
+               step: int) -> StepInputs:
+        """A host (or device) batch as :class:`StepInputs` on the device,
+        with the background drawn from ``generator``."""
         dev = self.device
 
         def t(x, dtype=torch.float32):
             return torch.as_tensor(x, dtype=dtype, device=dev)
 
-        return (t(batch["c2w"]), t(batch["K"]), int(batch["cam_idx"]),
-                t(batch["rgb"]),
-                t(batch["depth"]) if self.has_depth else None,
-                t(batch["mask"]) if self.has_mask else None)
+        return StepInputs(
+            c2w=t(batch["c2w"]), K=t(batch["K"]),
+            cam_idx=torch.full((1,), int(batch["cam_idx"]),
+                               dtype=torch.int64, device=dev),
+            rgb=t(batch["rgb"]),
+            depth=t(batch["depth"]) if self.has_depth else None,
+            mask=t(batch["mask"]) if self.has_mask else None,
+            background=background_color(self.cfg, dev, train=True,
+                                        generator=generator),
+            step=torch.full((), int(step), dtype=torch.int32, device=dev))
 
     def grads(self, state: TrainState, batch: Dict,
               generator: Optional[torch.Generator]) -> StepGrads:
         """Loss and raw gradients of one step; touches no state."""
+        return self._grads(state, self.inputs(batch, generator, state.step))
+
+    def _grads(self, state: TrainState, inp: StepInputs) -> StepGrads:
         cfg = self.cfg
-        c2w, K, cam_idx, gt_rgb, gt_depth, mask = self._batch(batch)
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.trainable_dict().items()}
         cam = state.camera_opt.detach().requires_grad_(True)
@@ -172,18 +216,21 @@ class TrainStep:
             side = torch.zeros(shape, dtype=torch.float32, device=self.device,
                                requires_grad=True)
         p = state.params.replace_trainable(leaves)
+        c2w = inp.c2w
         if self.camera_opt_on:
-            c2w = apply_camera_opt(c2w, cam[cam_idx])
+            # by a device index: a host index would be frozen into a graph
+            delta = cam.index_select(0, inp.cam_idx.reshape(1))[0]
+            c2w = apply_camera_opt(c2w, delta)
         out = render(
-            p, c2w, K, self.width, self.height, cfg, step=state.step,
-            train=True, device=self.device, generator=generator,
+            p, c2w, inp.K, self.width, self.height, cfg, step=inp.step,
+            train=True, device=self.device, background=inp.background,
             tile_eps=None if cfg.use_pallas else side,
             absgrad_seed=side if cfg.use_pallas else None,
         )
-        loss, losses = total_loss(out, gt_rgb, gt_depth, p, cfg, state.step,
-                                  mask)
+        loss, losses = total_loss(out, inp.rgb, inp.depth, p, cfg, inp.step,
+                                  inp.mask, self.ssim_bands)
         if self.camera_opt_on:
-            reg = camera_opt_regularizer(cam[cam_idx])
+            reg = camera_opt_regularizer(delta)
             losses = dict(losses, camera_opt_regularizer=reg)
             loss = loss + reg
         inputs = [*leaves.values(), cam] + ([side] if side is not None else [])
@@ -200,15 +247,15 @@ class TrainStep:
                                          losses.items()},
                          out, g_params, g_cam, absgrad)
 
-    def __call__(self, state: TrainState, batch: Dict,
-                 generator: Optional[torch.Generator]):
+    def run(self, state: TrainState, inp: StepInputs) -> Dict:
+        """The step's body: updates ``state``'s tensors and ``inp.step`` in
+        place and returns the metrics (0-d device tensors)."""
         cfg = self.cfg
-        sg = self.grads(state, batch, generator)
+        sg = self._grads(state, inp)
         g_params, g_cam = sg.params, sg.camera_opt
-        stats = state.stats
         if sg.absgrad is not None:
-            stats = accumulate_stats(stats, sg.absgrad, sg.out.radii,
-                                     self.max_hw)
+            accumulate_stats_(state.stats, sg.absgrad, sg.out.radii,
+                              self.max_hw)
 
         with torch.no_grad():
             # gradient hygiene before any optimizer state is touched
@@ -234,22 +281,23 @@ class TrainStep:
                                          g_cam, state.camera_opt_state)
 
             out = sg.out
-            gt_rgb = torch.as_tensor(batch["rgb"], dtype=torch.float32,
-                                     device=self.device)
             metrics = dict(sg.losses)
             metrics["loss"] = sg.loss
             if cfg.sanitize_grads:
                 metrics["nonfinite_grads"] = nonfinite
             metrics["gaussian_count"] = state.params.num_alive()
             metrics["psnr"] = -10.0 * torch.log10(
-                torch.mean((out.rgb.detach() - gt_rgb) ** 2) + 1e-12)
+                torch.mean((out.rgb.detach() - inp.rgb) ** 2) + 1e-12)
             metrics["tile_overflow"] = out.tile_overflow
             metrics["bbox_truncated"] = out.bbox_truncated
             metrics["tile_max_count"] = out.tile_max_count
+            inp.step.add_(1)
+        return metrics
 
-        new_state = dataclasses.replace(state, stats=stats,
-                                        step=state.step + 1)
-        return new_state, metrics
+    def __call__(self, state: TrainState, batch: Dict,
+                 generator: Optional[torch.Generator]):
+        metrics = self.run(state, self.inputs(batch, generator, state.step))
+        return dataclasses.replace(state, step=state.step + 1), metrics
 
 
 def make_train_step(cfg: ModelConfig, optims: GroupOptimizers, width: int,

@@ -1,7 +1,20 @@
-"""The trainer: setup, the per-step loop, cadences, growth, checkpoints
-(port of ``engine/trainer.py``).
+"""The trainer: setup, the dispatch loops, cadences, growth, checkpoints
+and the crash journal (port of ``engine/trainer.py``).
 
-One call of :meth:`Trainer.train` runs the per-step loop to the budget:
+One call of :meth:`Trainer.train` trains to the budget through one of two
+loops, chosen as the JAX trainer chooses its scan:
+
+- **multi-step dispatch** (``steps_per_dispatch`` > 1, or 0 when the
+  chunk, the gcd of every cadence capped at 100, is above 1 and the image
+  cache fits ``max_device_cache_bytes``): each chunk of steps runs through
+  ``engine/scan_runner.py``, a CUDA graph of the step replayed once per
+  step on CUDA (the same body eagerly on the CPU), on cameras from the
+  epoch-permutation queue of ``_reseed_sampling`` and the bucket's frames
+  on the device. Adaptive K and pair budget, the divergence check, refine,
+  eval and save run between chunks, on one metrics row per chunk;
+- **the per-step loop** (``steps_per_dispatch=1``, or 0 otherwise).
+
+Both share:
 
 - the coarse-to-fine resolution schedule (``2^max(num_downscales - step //
   resolution_schedule, 0)``), with a step per (width, height, depth, mask,
@@ -26,8 +39,14 @@ One call of :meth:`Trainer.train` runs the per-step loop to the budget:
   which the JAX package's ``finalize`` drops) and ``splat.ply``;
 - with ``profile_dir``, a ``torch.profiler`` trace (CPU and, on CUDA, the
   device) of steps start + 10 to start + 14 of each :meth:`Trainer.train`
-  call, the JAX trainer's window, written as a Chrome trace beside a
-  ``key_averages`` table.
+  call on the per-step loop, the JAX trainer's window, written as a Chrome
+  trace beside a ``key_averages`` table;
+- the attempt journal (``engine/journal.py``): the first dispatch of each
+  new step, graph, refine or eval configuration is recorded before it runs
+  and marked ok after it completed, and a start refuses what a previous
+  process died running (``_apply_crash_policy``, with ``journal_retry``'s
+  amnesty); ``QED_CRASH_ONCE_AT=<step>`` kills the process once at that
+  step, for the supervisor's tests (``cli train --supervise``).
 
 The step updates parameters and moments in place, so every checkpoint,
 pre-growth state and rollback target is a copy. Random draws come from
@@ -35,10 +54,8 @@ pre-growth state and rollback target is a copy. Random draws come from
 datamanager's.
 
 Not ported, each refused with :class:`NotImplementedError` naming its
-ROADMAP item: multi-step dispatch (``steps_per_dispatch`` other than 0 or
-1; 0 runs this loop), ``supervise`` and the attempt journal, more than one
-data or model shard, the viewer, the TensorBoard / wandb / comet writers
-and the bilateral grid. ``TrainerConfig.mixed_precision`` turns on the
+ROADMAP item: more than one data or model shard, the viewer, the
+TensorBoard / wandb / comet writers and the bilateral grid. ``TrainerConfig.mixed_precision`` turns on the
 model's (the bf16 operand compositing kernels), as in the JAX trainer.
 """
 
@@ -46,6 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -62,7 +80,12 @@ from qed_splatter_tpu_torch.engine.densify import (
     maybe_reset_opacities,
     refine,
 )
+from qed_splatter_tpu_torch.engine.journal import AttemptJournal
 from qed_splatter_tpu_torch.engine.optim import GroupOptimizers
+from qed_splatter_tpu_torch.engine.scan_runner import (
+    DeviceDataset,
+    make_scan_steps,
+)
 from qed_splatter_tpu_torch.engine.train_step import (
     TrainState,
     init_train_state,
@@ -81,7 +104,11 @@ from qed_splatter_tpu_torch.models.gaussians import (
     init_random,
     pad_rows,
 )
-from qed_splatter_tpu_torch.models.splatfacto import render, total_loss
+from qed_splatter_tpu_torch.models.splatfacto import (
+    background_color,
+    render,
+    total_loss,
+)
 
 
 def downscale_image(img: np.ndarray, d: int) -> np.ndarray:
@@ -108,19 +135,16 @@ class TrainingDiverged(RuntimeError):
     ``TrainerConfig.on_divergence``) be rolled back."""
 
 
+# CUDA errors after which the context is unusable and the process must
+# restart (the growth canary re-raises them; the journal witnesses them)
+DEVICE_LOST = ("illegal memory access", "unspecified launch failure",
+               "device-side assert", "an illegal instruction")
+
+
 def _refuse_unported(config: TrainerConfig) -> None:
-    if config.steps_per_dispatch not in (0, 1):
-        raise not_ported(
-            f"steps_per_dispatch={config.steps_per_dispatch} (multi-step "
-            f"dispatch)", 1, "multi-step dispatch as a CUDA graph of the "
-            f"step")
-    if config.supervise:
-        raise not_ported("supervise=True (the crash supervisor and its "
-                         "attempt journal)", 2,
-                         "the attempt journal and supervise")
     if config.num_data_shards * config.num_model_shards > 1:
         raise not_ported("num_data_shards / num_model_shards > 1", 8,
-                         "parallel/* and multi_scene")
+                         "parallel/*")
     if config.vis == "viewer":
         raise not_ported("vis='viewer'", 10, "the viewer")
     if config.vis in ("tensorboard", "wandb", "comet"):
@@ -138,10 +162,6 @@ class Trainer:
                  optims: Optional[GroupOptimizers] = None,
                  device="cuda"):
         _refuse_unported(config)
-        if config.steps_per_dispatch == 0:
-            print("steps_per_dispatch=0 (auto) runs the per-step loop: "
-                  "multi-step dispatch waits for ROADMAP.md 'Next, in "
-                  "order' item 1 (a CUDA graph of the step)")
         if not config.data.data and datamanager is None:
             raise ValueError("TrainerConfig.data.data is required")
         self.config = config
@@ -169,7 +189,21 @@ class Trainer:
         # adaptive per-tile K and pair budget, per resolution bucket
         self._k_by_d: Dict[int, int] = {}
         self._tpg_by_d: Dict[int, int] = {}
+        # multi-step dispatch: frames on the device by downscale, and the
+        # runners (one CUDA graph each) of the current bucket and capacity
+        self._datasets: Dict[int, DeviceDataset] = {}
+        self._runners: Dict[Tuple, object] = {}
+        # the crash journal: configurations whose first dispatch completed
+        # in this process, and the caps learned from crashes
+        self._journal = AttemptJournal(self.run_dir / "attempt_journal.jsonl")
+        self._witnessed: set = set()
+        self._k_crash_cap: Dict[int, int] = {}
+        self._eval_k_cap: Optional[int] = None
         self.state = self._setup_state()
+        # the camera queue lives across train() calls, derived from the
+        # resume step (multi-scene turns and resumes do not replay a prefix)
+        self._reseed_sampling()
+        self._apply_crash_policy()
 
     # ------------------------------------------------------------ setup
 
@@ -211,6 +245,110 @@ class Trainer:
                                  random_scale=self.cfg.random_scale, **common)
         return init_train_state(params, self.optims,
                                 num_cameras=len(scene.frames))
+
+    def _reseed_sampling(self) -> None:
+        """The multi-step loop's camera queue from (seed, current step): at
+        setup and after a rollback."""
+        self._np_rng = np.random.default_rng((self.config.seed,
+                                              int(self.state.step)))
+        self._queue: list = []
+
+    # ------------------------------------------------- crash-proof dispatch
+
+    def _apply_crash_policy(self) -> None:
+        """Refuse, by the journal's evidence, what a previous process died
+        running: a crashed capacity growth is refused, a crashed step caps
+        its bucket's K, a crashed eval caps the eval K, anything else at
+        the current capacity freezes densification and growth. A
+        configuration that crashed at most ``journal_retry`` times is
+        granted amnesty and attempted again (a single kill may have been
+        another process's fault); crashing again refuses it on every later
+        start."""
+        retry = self.config.journal_retry
+        for c, count in self._journal.crashed_with_counts():
+            if count <= retry:
+                print(f"CRASH POLICY: config {c} crashed {count}x (<= "
+                      f"journal_retry={retry}); granting amnesty and "
+                      f"attempting it again; a second crash refuses it")
+                continue
+            self._apply_one_crash(c)
+
+    def _apply_one_crash(self, c: Dict) -> None:
+        cap_now = self.state.params.capacity
+        kind = c.get("kind", "?")
+        if int(c.get("capacity", 0)) > cap_now:
+            bad = int(c["capacity"])
+            self._grow_refused.add(bad)
+            print(f"CRASH POLICY: a previous run died executing {kind} at "
+                  f"capacity {bad} (> restored {cap_now}); refusing growth "
+                  f"to {bad} (journal {self._journal.path})")
+        elif kind == "step" and "d" in c and "k" in c:
+            d, k = int(c["d"]), int(c["k"])
+            capped = max(k // 2, 128)
+            self._k_crash_cap[d] = capped
+            if self._k_by_d.get(d, 0) >= k:
+                self._k_by_d[d] = capped
+            print(f"CRASH POLICY: a previous run died executing the train "
+                  f"step at 1/{d} res with K={k}; capping this bucket's "
+                  f"max_per_tile at {capped}")
+        elif kind == "eval" and "k" in c:
+            self._eval_k_cap = max(int(c["k"]) // 2, 128)
+            print(f"CRASH POLICY: a previous run died in an eval render at "
+                  f"K={c['k']}; capping eval K at {self._eval_k_cap}")
+        else:  # refine, or unknown, at the current capacity
+            self._grow_refused.add(min(cap_now * 2, self.cfg.max_capacity))
+            self._densify_frozen_until = (
+                self.state.step + self.config.divergence_freeze_steps)
+            print(f"CRASH POLICY: a previous run died executing {kind} at "
+                  f"the current capacity {cap_now}; freezing densification "
+                  f"until step {self._densify_frozen_until} and refusing "
+                  f"further growth")
+
+    def _dispatch_journaled(self, key: Dict, fn, *args):
+        """``fn(*args)``; the first time ``key`` runs in this process it is
+        journaled: attempt, the dispatch, its completion
+        (``torch.cuda.synchronize``), ok. A configuration seen before runs
+        with no overhead."""
+        fkey = frozenset(key.items())
+        is_new = fkey not in self._witnessed
+        if is_new:
+            self._journal.attempt(**key)
+        out = fn(*args)
+        if is_new:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._journal.ok(**key)
+            self._witnessed.add(fkey)
+        return out
+
+    @staticmethod
+    def _device_lost(e: Exception) -> bool:
+        """True for errors after which the process must restart: CUDA's
+        context-killing errors."""
+        s = f"{type(e).__name__}: {e}"
+        return any(m in s for m in DEVICE_LOST)
+
+    @classmethod
+    def _canary_reverts(cls, e: Exception) -> bool:
+        """An out-of-memory error the growth canary reverts (a lost device
+        is re-raised for the supervisor instead)."""
+        oom = (isinstance(e, torch.cuda.OutOfMemoryError)
+               or "out of memory" in str(e))
+        return oom and not cls._device_lost(e)
+
+    def _test_crash_hook(self, step: int) -> None:
+        """``QED_CRASH_ONCE_AT=<step>``: a hard process exit (no cleanup) the
+        first time ``step`` is reached in this run directory, for the
+        supervisor and journal tests."""
+        at = os.environ.get("QED_CRASH_ONCE_AT")
+        if not at:
+            return
+        marker = self.run_dir / ".crash_once_done"
+        if step >= int(at) and not marker.exists():
+            marker.write_text(str(step))
+            print(f"TEST HOOK: simulating a lost process at step {step}",
+                  flush=True)
+            os._exit(41)
 
     def _generator(self, step: int, stream: int) -> torch.Generator:
         """A generator for one draw of one step: the random background
@@ -309,8 +447,10 @@ class Trainer:
 
     def _revert_growth(self, cur: int, err: Exception) -> None:
         """The refine or step after a growth ran out of memory: restore the
-        pre-growth state and refuse that capacity."""
+        pre-growth state and refuse that capacity (its runners go too)."""
         pre_cap, new_cap, pre = self._canary[:3]
+        self._runners = {k: r for k, r in self._runners.items()
+                         if k[3] != new_cap}
         print(f"GROWTH CANARY FAILED at step {cur} (capacity {pre_cap} -> "
               f"{new_cap}): {type(err).__name__}: {str(err)[:300]}. "
               f"Restoring the pre-growth state and refusing capacity "
@@ -326,10 +466,12 @@ class Trainer:
 
     def _refine(self, cur: int, max_hw: int):
         s = self.state
-        params, opt_state, stats, info = refine(
-            s.params, s.opt_state, s.stats, s.step, self.cfg,
-            num_train_data=self.dm.num_train, max_hw=max_hw,
-            generator=self._generator(cur, 1))
+        params, opt_state, stats, info = self._dispatch_journaled(
+            dict(kind="refine", capacity=s.params.capacity,
+                 max_hw=int(max_hw)),
+            lambda: refine(s.params, s.opt_state, s.stats, s.step, self.cfg,
+                           num_train_data=self.dm.num_train, max_hw=max_hw,
+                           generator=self._generator(cur, 1)))
         params, opt_state = maybe_reset_opacities(params, opt_state, s.step,
                                                   self.cfg)
         self.state = dataclasses.replace(s, params=params,
@@ -344,8 +486,8 @@ class Trainer:
             grown = self._maybe_grow(cur, max_hw)
             try:
                 info = self._refine(cur, max_hw)
-            except torch.cuda.OutOfMemoryError as e:
-                if not grown:
+            except Exception as e:
+                if not grown or not self._canary_reverts(e):
                     raise
                 self._revert_growth(cur, e)
                 info = self._refine(cur, max_hw)
@@ -418,6 +560,9 @@ class Trainer:
         if d not in self._k_by_d:
             coarser = [k for dd, k in self._k_by_d.items() if dd > d]
             self._k_by_d[d] = max([self.config.model.max_per_tile, *coarser])
+        cap = self._k_crash_cap.get(d)
+        if cap is not None and self._k_by_d[d] > cap:
+            self._k_by_d[d] = cap
         return self._k_by_d[d]
 
     def _maybe_adapt_k(self, overflow, max_count, width: int, height: int,
@@ -431,7 +576,9 @@ class Trainer:
         k_now = self._k_for(d)
         ts = cfg.tile_size
         t = (-(-width // ts)) * (-(-height // ts))
-        k_limit = cfg.max_per_tile_limit
+        # a K that killed a previous run caps the bucket below it
+        k_limit = min(cfg.max_per_tile_limit,
+                      self._k_crash_cap.get(d, cfg.max_per_tile_limit))
         if overflow > 0.10 * t * k_now and k_now < k_limit:
             new_k = min(k_now * 2, k_limit)
             print(f"Growing max_per_tile {k_now} -> {new_k} at 1/{d} res "
@@ -476,12 +623,166 @@ class Trainer:
             self.cfg = dataclasses.replace(self.cfg, max_per_tile=k,
                                            small_tiles_per_gaussian=tpg)
 
+    # ------------------------------------------------- multi-step dispatch
+
+    def _dispatch_chunk(self) -> int:
+        """Steps per dispatch: explicit, or the gcd of every step cadence
+        (capped at 100), so each cadence falls on a chunk's end."""
+        if self.config.steps_per_dispatch:
+            return self.config.steps_per_dispatch
+        cads = [self.cfg.refine_every, self.cfg.warmup_length,
+                self.cfg.resolution_schedule, self.cfg.stop_split_at,
+                self.cfg.stop_screen_size_at,
+                self.config.steps_per_eval_image,
+                self.config.steps_per_eval_all_images,
+                self.config.steps_per_save, self.config.max_num_iterations,
+                self.config.log_every]
+        g = 0
+        for c in cads:
+            if c:
+                g = math.gcd(g, int(c))
+        return max(1, min(g or 1, 100))
+
+    def _use_scan(self) -> bool:
+        """Multi-step dispatch unless ``steps_per_dispatch=1``, a chunk of
+        1, or an image cache (every train frame and its depth, twice for
+        the downscale buckets) above ``max_device_cache_bytes``."""
+        if self.config.steps_per_dispatch == 1 or self._dispatch_chunk() <= 1:
+            return False
+        item = self.dm.get_item(int(self.dm.train_indices[0]))
+        per = item["image"].nbytes + (
+            item["depth_image"].nbytes if "depth_image" in item else 0)
+        return per * self.dm.num_train * 2 <= (
+            self.config.max_device_cache_bytes)
+
+    def _device_dataset(self, d: int) -> DeviceDataset:
+        if d not in self._datasets:
+            items = [self.dm.get_item(int(i)) for i in self.dm.train_indices]
+            self._datasets[d] = DeviceDataset(items, d, downscale_image,
+                                              downscale_depth, self.device)
+        return self._datasets[d]
+
+    def _get_scan_fn(self, d: int, chunk: int, need_absgrad: bool,
+                     capacity: int):
+        """(runner, dataset) of ``chunk`` steps at 1/``d`` res. A runner is
+        one CUDA graph: a new key is a new capture, and the runners of
+        another bucket or capacity (which the schedule does not return
+        to) are dropped with their graphs."""
+        ds = self._device_dataset(d)
+        key = (d, chunk, need_absgrad, capacity, self.cfg.max_per_tile,
+               self.cfg.small_tiles_per_gaussian, ds.has_depth, ds.has_mask,
+               self.cfg.camera_opt_mode != "off")
+        if key not in self._runners:
+            self._runners = {k: r for k, r in self._runners.items()
+                             if (k[0], k[3]) == (d, capacity)}
+            self._runners[key] = make_scan_steps(
+                self.cfg, self.optims, ds, chunk, need_absgrad=need_absgrad,
+                device=self.device)
+        return self._runners[key], ds
+
+    def _next_perm(self, n: int) -> list:
+        """The next ``n`` train positions of the queue: epochs of random
+        permutations without replacement, as the JAX trainer draws them."""
+        while len(self._queue) < n:
+            self._queue.extend(
+                self._np_rng.permutation(self.dm.num_train).tolist())
+        perm, self._queue = self._queue[:n], self._queue[n:]
+        return perm
+
+    def _backgrounds(self, step: int, n: int) -> Optional[torch.Tensor]:
+        """[n, 3] random backgrounds of steps ``step`` .. ``step + n - 1``,
+        drawn from the per-step loop's generators (None for a fixed
+        colour)."""
+        if self.cfg.background_color != "random":
+            return None
+        return torch.stack([background_color(self.cfg, self.device, True,
+                                             self._generator(step + i, 0))
+                            for i in range(n)])
+
+    def _train_scan(self, max_steps: Optional[int] = None,
+                    finalize: bool = True) -> TrainState:
+        """Multi-step dispatch: one runner call (a CUDA graph replayed per
+        step on CUDA) per chunk, cameras from the epoch-permutation queue,
+        one metrics row per chunk."""
+        cfgt = self.config
+        total = max_steps or cfgt.max_num_iterations
+        chunk = self._dispatch_chunk()
+        start_step = self.state.step
+        t0 = time.perf_counter()
+        step = start_step
+        while step < total:
+            n = min(chunk, total - step)
+            d = self._downscale_factor(step)
+            self._sync_bucket_cfg(d)
+            perm = self._next_perm(n)
+            runner, ds = self._get_scan_fn(
+                d, n, need_absgrad=step < self.cfg.stop_split_at,
+                capacity=self.state.params.capacity)
+            jrec = dict(kind="step", capacity=self.state.params.capacity,
+                        d=int(d), k=int(self.cfg.max_per_tile), chunk=int(n),
+                        tpg=int(self.cfg.small_tiles_per_gaussian),
+                        absgrad=bool(step < self.cfg.stop_split_at))
+            try:
+                self.state, metrics = self._dispatch_journaled(
+                    jrec, runner, self.state, perm,
+                    self._backgrounds(step, n))
+            except Exception as e:
+                if self._canary is None or not self._canary_reverts(e):
+                    raise
+                refine_at = self._canary[3:]
+                self._revert_growth(step, e)
+                info = self._refine(*refine_at)
+                self.writer.write(refine_at[0], info._asdict(),
+                                  prefix="refine")
+                continue
+            self._canary = None
+            step += n
+            self._test_crash_hook(step)
+            # one host read per chunk; reductions over the chunk, not only
+            # its last step, so a spike or a first NaN inside it shows
+            marr = dict(zip(runner.names, metrics.cpu().numpy().T))
+            marr.pop("cam_idx")
+            last = {k: float(v[-1]) for k, v in marr.items()}
+            last["gaussian_count"] = int(self.state.params.num_alive())
+            last["loss_max"] = float(np.max(marr["loss"]))
+            if "nonfinite_grads" in marr:
+                last["nonfinite_grads"] = float(np.sum(
+                    marr["nonfinite_grads"]))
+            self._maybe_adapt_k(float(np.max(marr["tile_overflow"])),
+                                float(np.max(marr["tile_max_count"])),
+                                ds.width, ds.height, d)
+            self._maybe_adapt_tpg(last.get("bbox_truncated"), d)
+            self.writer.write(step, last, prefix="train")
+            if (not bool(np.isfinite(marr["loss"]).all())
+                    or not self._state_finite()):
+                step = self._handle_divergence(step)
+                self._reseed_sampling()
+                continue
+            self._callbacks(step, max(ds.width, ds.height))
+        self._report(total - start_step, t0, f", chunk={chunk}")
+        if finalize:
+            self.finalize(total)
+        return self.state
+
+    def _report(self, done: int, t0: float, extra: str = "") -> None:
+        if done > 0:
+            wall = time.perf_counter() - t0
+            print(f"Trained {done} steps in {wall:.1f}s "
+                  f"({done / max(wall, 1e-9):.2f} iters/s{extra})")
+
     # ------------------------------------------------------------- loop
 
     def train(self, max_steps: Optional[int] = None,
               finalize: bool = True) -> TrainState:
         """Train to ``max_steps`` (default: the configured budget), then
-        ``finalize`` unless told not to."""
+        ``finalize`` unless told not to; multi-step dispatch where
+        :meth:`_use_scan` picks it, else the per-step loop."""
+        if self._use_scan():
+            return self._train_scan(max_steps, finalize)
+        return self._train_per_step(max_steps, finalize)
+
+    def _train_per_step(self, max_steps: Optional[int] = None,
+                        finalize: bool = True) -> TrainState:
         cfgt = self.config
         total = max_steps or cfgt.max_num_iterations
         start_step = self.state.step
@@ -504,11 +805,15 @@ class Trainer:
                 self.state.params.capacity,
                 # absgrad stats matter only while densification can run
                 need_absgrad=step < self.cfg.stop_split_at)
+            jrec = dict(kind="step", capacity=self.state.params.capacity,
+                        d=int(d), k=int(self.cfg.max_per_tile),
+                        w=int(cam.width), h=int(cam.height), sharded=False)
             try:
-                self.state, metrics = step_fn(self.state, batch,
-                                              self._generator(step, 0))
-            except torch.cuda.OutOfMemoryError as e:
-                if self._canary is None:
+                self.state, metrics = self._dispatch_journaled(
+                    jrec, step_fn, self.state, batch,
+                    self._generator(step, 0))
+            except Exception as e:
+                if self._canary is None or not self._canary_reverts(e):
                     raise
                 refine_at = self._canary[3:]
                 self._revert_growth(step, e)
@@ -521,12 +826,14 @@ class Trainer:
                 continue
             self._canary = None
             cur = step = step + 1
+            self._test_crash_hook(cur)
             if prof is not None and cur == start_step + 15:
                 self._stop_profile(prof, start_step + 10, cur)
                 prof = None
 
             if prev_loss is not None and not math.isfinite(float(prev_loss)):
                 step = self._handle_divergence(cur - 1)
+                self._reseed_sampling()
                 prev_loss = None
                 continue
             prev_loss = metrics["loss"]
@@ -540,17 +847,14 @@ class Trainer:
                 self._maybe_adapt_tpg(host.get("bbox_truncated"), d)
                 if not math.isfinite(host["loss"]) or not self._state_finite():
                     step = self._handle_divergence(cur)
+                    self._reseed_sampling()
                     prev_loss = None
                     continue
             self._callbacks(cur, max(cam.width, cam.height))
 
         if prof is not None:
             self._stop_profile(prof, start_step + 10, step)
-        done = total - start_step
-        if done > 0:
-            wall = time.perf_counter() - t0
-            print(f"Trained {done} steps in {wall:.1f}s "
-                  f"({done / max(wall, 1e-9):.2f} iters/s)")
+        self._report(total - start_step, t0)
         if finalize:
             self.finalize(total)
         return self.state
@@ -596,8 +900,12 @@ class Trainer:
 
     def _k_eval(self, d: int) -> int:
         """K for eval renders: the max adaptive K over all buckets (eval
-        views get no overflow feedback and a shrunk K could truncate)."""
-        return max([self._k_for(d), *self._k_by_d.values()])
+        views get no overflow feedback and a shrunk K could truncate),
+        under the cap a crashed eval left."""
+        k = max([self._k_for(d), *self._k_by_d.values()])
+        if self._eval_k_cap is not None:
+            k = min(k, self._eval_k_cap)
+        return k
 
     def _render_eval(self, item: Dict, d: int = 1):
         cam = item["camera"].rescaled(1.0 / d) if d > 1 else item["camera"]
@@ -606,20 +914,32 @@ class Trainer:
         # than training
         tpg = max([self.config.model.small_tiles_per_gaussian,
                    *self._tpg_by_d.values()])
+        k_limit = min(self.cfg.max_per_tile_limit,
+                      self._eval_k_cap or self.cfg.max_per_tile_limit)
         while True:
             eval_cfg = dataclasses.replace(self.cfg, max_per_tile=k,
                                            small_tiles_per_gaussian=tpg)
-            out = render(self.state.params, cam.c2w, cam.intrinsics_matrix(),
-                         cam.width, cam.height, eval_cfg,
-                         step=self.state.step, train=False,
-                         device=self.device)
+            out = self._dispatch_journaled(
+                dict(kind="eval", capacity=self.state.params.capacity,
+                     k=int(k), w=int(cam.width), h=int(cam.height)),
+                lambda: render(self.state.params, cam.c2w,
+                               cam.intrinsics_matrix(), cam.width,
+                               cam.height, eval_cfg, step=self.state.step,
+                               train=False, device=self.device))
             # re-render once at a doubled K (to the limit) when the
             # per-tile lists truncated, for an unbiased metric
-            if (int(out.tile_overflow) > 0
-                    and k < self.cfg.max_per_tile_limit):
-                k = min(k * 2, self.cfg.max_per_tile_limit)
+            if int(out.tile_overflow) > 0 and k < k_limit:
+                k = min(k * 2, k_limit)
                 continue
             return out, cam
+
+    def _tag_eval_k_cap(self, metrics: Dict) -> None:
+        """A crash-capped eval K goes into the metrics row: its renders may
+        truncate, so the metrics are lower bounds."""
+        if self._eval_k_cap is not None:
+            metrics["eval_k_cap"] = int(self._eval_k_cap)
+            print(f"WARNING: eval K crash-capped at {self._eval_k_cap}; "
+                  f"eval renders may truncate, metrics are lower bounds")
 
     def _gt(self, item: Dict, d: int):
         gt = torch.as_tensor(np.asarray(downscale_image(item["image"], d),
@@ -646,6 +966,7 @@ class Trainer:
             out.rgb, gt, out.depth, gt_depth, rgb_metrics=self.rgb_metrics,
             gaussian_count=int(p.num_alive()),
             avg_min_scale=float(avg_min_scale(p.scales, p.alive)))
+        self._tag_eval_k_cap(metrics)
         self.writer.write(step, metrics, prefix="eval", force_console=True)
         return metrics
 
@@ -676,5 +997,6 @@ class Trainer:
             finite = vals[np.isfinite(vals)]
             agg[k] = float(finite.mean()) if finite.size else float("nan")
         agg["gaussian_count"] = int(self.state.params.num_alive())
+        self._tag_eval_k_cap(agg)
         self.writer.write(step, agg, prefix="eval_all", force_console=True)
         return agg

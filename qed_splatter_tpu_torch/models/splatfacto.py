@@ -94,6 +94,7 @@ def render(
     generator: Optional[torch.Generator] = None,
     tile_eps: Optional[torch.Tensor] = None,
     absgrad_seed: Optional[torch.Tensor] = None,
+    background: Optional[torch.Tensor] = None,
 ) -> RenderOutputs:
     """Render one camera on ``device`` (params, ``c2w`` and ``K`` are moved
     there; numpy or tensors).
@@ -103,7 +104,9 @@ def render(
     gives the background image.
 
     ``train=True``: differentiable in the parameters and ``c2w``; the
-    random background needs ``generator``; depth is rendered when
+    random background needs ``generator``, or is given as ``background``
+    ([3] on ``device``, drawn ahead: a graph-captured step draws nothing);
+    ``step`` may be a 0-d device tensor; depth is rendered when
     ``cfg.output_depth_during_training``. The absgrad side channel is
     ``absgrad_seed`` (zeros [C, 2]) on the kernel path and ``tile_eps``
     (zeros [T, K, 2], with ``absgrad_scatter``) on the plain path
@@ -113,11 +116,12 @@ def render(
     grad_mode = contextlib.nullcontext() if train else torch.no_grad()
     with grad_mode:
         return _render(params, c2w, K, width, height, cfg, step, train,
-                       crop_box, device, generator, tile_eps, absgrad_seed)
+                       crop_box, device, generator, tile_eps, absgrad_seed,
+                       background)
 
 
 def _render(params, c2w, K, width, height, cfg, step, train, crop_box,
-            device, generator, tile_eps, absgrad_seed):
+            device, generator, tile_eps, absgrad_seed, background):
     render_depth = cfg.output_depth_during_training or not train
     dev = resolve_device(device)
     params = params.to(dev)
@@ -207,7 +211,8 @@ def _render(params, c2w, K, width, height, cfg, step, train, crop_box,
             tile_eps=tile_eps,
         )
 
-    bg = background_color(cfg, dev, train, generator)
+    bg = (background if train and background is not None
+          else background_color(cfg, dev, train, generator))
     rgb = out.render[..., :3] + (1.0 - out.alpha) * bg
     rgb = torch.clamp(rgb, 0.0, 1.0)
 
@@ -239,14 +244,17 @@ def photometric_loss(
     gt: torch.Tensor,       # [H, W, 3] float in [0, 1]
     ssim_lambda: float,
     mask: Optional[torch.Tensor] = None,
+    ssim_bands: Optional[tuple] = None,
 ) -> torch.Tensor:
     """Splatfacto's main loss, (1 - l) L1 + l (1 - SSIM), with the optional
-    pixel mask applied multiplicatively as the reference does."""
+    pixel mask applied multiplicatively as the reference does.
+    ``ssim_bands``: :func:`~qed_splatter_tpu_torch.ops.ssim.ssim_bands` of
+    this image size."""
     if mask is not None:
         pred = pred * mask
         gt = gt * mask
     l1 = torch.mean(torch.abs(gt - pred))
-    s = 1.0 - ssim(pred, gt)
+    s = 1.0 - ssim(pred, gt, bands=ssim_bands)
     return (1.0 - ssim_lambda) * l1 + ssim_lambda * s
 
 
@@ -287,18 +295,27 @@ def total_loss(
     gt_depth: Optional[torch.Tensor],
     params: GaussianParams,
     cfg: ModelConfig,
-    step: int,
+    step,
     mask: Optional[torch.Tensor] = None,
+    ssim_bands: Optional[tuple] = None,
 ):
     """(scalar, dict of terms): the photometric loss, the scale
-    regularization every 10th step when enabled, and the weighted depth L1."""
+    regularization every 10th step when enabled, and the weighted depth L1.
+    ``step`` is an int or a 0-d device tensor (the graph-captured step's
+    counter: the regularizer is then gated by ``torch.where``, with the
+    same value and gradient). ``ssim_bands`` as in :func:`photometric_loss`."""
     losses = {}
     losses["main_loss"] = photometric_loss(
-        outputs.rgb, gt_rgb, cfg.ssim_lambda, mask)
+        outputs.rgb, gt_rgb, cfg.ssim_lambda, mask, ssim_bands)
     if cfg.use_scale_regularization:
-        losses["scale_reg"] = (
-            scale_regularization(params, cfg.max_gauss_ratio)
-            if int(step) % 10 == 0 else outputs.rgb.new_zeros(()))
+        if isinstance(step, torch.Tensor):
+            losses["scale_reg"] = torch.where(
+                step % 10 == 0,
+                scale_regularization(params, cfg.max_gauss_ratio), 0.0)
+        else:
+            losses["scale_reg"] = (
+                scale_regularization(params, cfg.max_gauss_ratio)
+                if int(step) % 10 == 0 else outputs.rgb.new_zeros(()))
     if gt_depth is not None and outputs.depth is not None:
         losses["depth_loss"] = cfg.depth_lambda * depth_l1_loss(
             outputs.depth, gt_depth, mask)

@@ -13,24 +13,23 @@ from typing import Optional
 import numpy as np
 import torch
 
-# Column flip that maps OpenGL (y-up, z-back) camera axes to OpenCV
-# (y-down, z-forward): multiplying R by it on the right negates the y and z
-# basis vectors.
-_FLIP_YZ = (1.0, -1.0, -1.0)
-
 
 def get_viewmat(c2w: torch.Tensor) -> torch.Tensor:
     """OpenGL camera-to-world [..., 3or4, 4] -> OpenCV world-to-camera [..., 4, 4]."""
-    flip = torch.tensor(_FLIP_YZ, dtype=c2w.dtype, device=c2w.device)
+    # the column flip (1, -1, -1) from OpenGL (y-up, z-back) to OpenCV
+    # (y-down, z-forward) axes, built on the device: the train step is
+    # captured in a CUDA graph, where a copy from the host is not allowed
+    flip = torch.ones(3, dtype=c2w.dtype, device=c2w.device)
+    flip[1:].fill_(-1.0)     # fill_: no host scalar copied in
     R = c2w[..., :3, :3] * flip                      # flip columns
     t = c2w[..., :3, 3:4]
     R_inv = R.transpose(-1, -2)
     # -R^T t as explicit products: a batched matmul here could run in TF32
     t_inv = -(R_inv * t.transpose(-1, -2)).sum(-1, keepdim=True)
     top = torch.cat([R_inv, t_inv], dim=-1)          # [..., 3, 4]
-    bottom = torch.tensor(
-        [0.0, 0.0, 0.0, 1.0], dtype=c2w.dtype, device=c2w.device
-    ).expand(top.shape[:-2] + (1, 4))
+    bottom = torch.zeros(4, dtype=c2w.dtype, device=c2w.device)
+    bottom[3:].fill_(1.0)
+    bottom = bottom.expand(top.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

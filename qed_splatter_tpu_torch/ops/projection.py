@@ -93,10 +93,9 @@ def project_gaussians(
         & torch.isfinite(scales).all(-1)
     )                                            # [N]
     means = torch.where(row_ok[:, None], means, 0.0)
-    quats = torch.where(
-        row_ok[:, None], quats,
-        torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=f32, device=quats.device),
-    )
+    unit = torch.zeros(4, dtype=f32, device=quats.device)
+    unit[:1].fill_(1.0)      # fill_: no host scalar copied in
+    quats = torch.where(row_ok[:, None], quats, unit)
     scales = torch.where(row_ok[:, None], scales, 1.0)
     R = viewmats[:, :3, :3].to(f32)              # [C, 3, 3]
     t = viewmats[:, :3, 3].to(f32)               # [C, 3]

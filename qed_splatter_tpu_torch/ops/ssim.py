@@ -18,6 +18,7 @@ cancellation, as bf16 did on the TPU.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -37,8 +38,8 @@ def _gaussian_kernel_np(kernel_size: int, sigma: float) -> np.ndarray:
 def _band_matrix(n: int, kernel_size: int, sigma: float,
                  device: torch.device) -> torch.Tensor:
     """[n, n - k + 1] with the taps on rows j..j+k-1 of column j, so
-    ``x @ B`` is the valid-mode blur of x's last axis. Cached (read only):
-    a train step reuses the same two."""
+    ``x @ B`` is the valid-mode blur of x's last axis. Cached (read only);
+    the cache may drop a matrix that a caller still holds."""
     g = torch.as_tensor(_gaussian_kernel_np(kernel_size, sigma))
     nout = n - kernel_size + 1
     band = torch.zeros((n, nout), dtype=torch.float32)
@@ -46,6 +47,16 @@ def _band_matrix(n: int, kernel_size: int, sigma: float,
     for t in range(kernel_size):
         band[cols + t, cols] = g[t]
     return band.to(device)
+
+
+def ssim_bands(width: int, height: int, kernel_size: int = 11,
+               sigma: float = 1.5, device="cpu") -> tuple:
+    """(width band, height band) of :func:`ssim` on [height, width]
+    images. A CUDA graph that reads them keeps none of them alive, so its
+    owner must hold this tuple for as long as it replays."""
+    dev = torch.device(device)
+    return (_band_matrix(width, kernel_size, sigma, dev),
+            _band_matrix(height, kernel_size, sigma, dev))
 
 
 def _ssim_map_mean(mu_p, mu_t, mu_pp, mu_tt, mu_pt, c1, c2, shift):
@@ -65,8 +76,10 @@ def ssim(
     kernel_size: int = 11,
     sigma: float = 1.5,
     data_range: float = 1.0,
+    bands: Optional[tuple] = None,
 ) -> torch.Tensor:
-    """Scalar mean SSIM (higher is better), band-matmul form."""
+    """Scalar mean SSIM (higher is better), band-matmul form. ``bands``:
+    :func:`ssim_bands` of this size (else they come from the cache)."""
     c1 = (0.01 * data_range) ** 2
     c2 = (0.03 * data_range) ** 2
     half = 0.5 * data_range
@@ -74,8 +87,7 @@ def ssim(
     st = target - half
     stack = torch.stack([sp, st, sp * sp, st * st, sp * st])  # [5, H, W, C]
     h, w = stack.shape[1], stack.shape[2]
-    bw = _band_matrix(w, kernel_size, sigma, stack.device)
-    bh = _band_matrix(h, kernel_size, sigma, stack.device)
+    bw, bh = bands or ssim_bands(w, h, kernel_size, sigma, stack.device)
     x = stack.permute(0, 3, 1, 2)                  # [5, C, H, W]
     y = torch.matmul(x, bw)                        # [5, C, H, W']
     y = torch.matmul(y.transpose(-1, -2), bh)      # [5, C, W', H']

@@ -187,7 +187,7 @@ def bin_gaussians(
     dq_bits = 32 - idx_bits
     if dq_bits >= 10:
         valid = ~culled
-        inf = torch.tensor(float("inf"), dtype=depths.dtype, device=dev)
+        inf = torch.full((), float("inf"), dtype=depths.dtype, device=dev)
         lo = torch.log(torch.clamp(
             torch.where(valid, depths, inf).min(), min=1e-6))
         hi = torch.log(torch.clamp(

@@ -3,6 +3,8 @@
 Needs a CUDA GPU and nvcc; each test skips without one. On a GPU machine:
 ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -624,3 +626,174 @@ def test_microbench_times_a_graph_and_an_eager_loop(gen):
     # a host sync cannot be captured: the eager timing, and it says so
     microbench.device_time_per_call(lambda a: float(a.sum()), (x,), n=3)
     assert microbench.last_method == "eager"
+
+
+def _room_trainer(tmp_path, **kw):
+    """A trainer on a small room (6 frames at 256x168) whose multi-step
+    dispatch runs chunks of 5 steps."""
+    from qed_splatter_tpu_torch.configs import DataConfig, ModelConfig, \
+        TrainerConfig
+    from qed_splatter_tpu_torch.engine.trainer import Trainer
+    from qed_splatter_tpu_torch.testing import write_room_dataset
+
+    if not (tmp_path / "room").exists():
+        write_room_dataset(tmp_path / "room", num_frames=6, width=256,
+                           height=168, sparse_ply=3000, workers=4)
+    model = ModelConfig(num_downscales=0, warmup_length=5, refine_every=10,
+                        init_capacity_headroom=3.0, max_per_tile=256,
+                        adaptive_max_per_tile=False)
+    args = dict(max_num_iterations=20, steps_per_eval_image=0,
+                steps_per_eval_all_images=0, steps_per_save=5, log_every=5,
+                output_dir=str(tmp_path / "out"),
+                data=DataConfig(data=str(tmp_path / "room")), model=model,
+                steps_per_dispatch=5)
+    args.update(kw)
+    return Trainer(TrainerConfig(**args))
+
+
+def _eager_chunk(runner, state, perm, bgs):
+    """The per-step loop on the runner's step, frames and backgrounds."""
+    ds = runner.dataset.data
+    gen = torch.Generator(device="cuda")
+    losses = []
+    for i, p in enumerate(perm):
+        batch = {"c2w": ds["c2w"][p], "K": ds["K"][p],
+                 "cam_idx": int(ds["cam_idx"][p]),
+                 "rgb": ds["rgb_u8"][p].cpu().numpy().astype(np.float32)
+                 / 255.0, "depth": ds["depth"][p]}
+        inp = runner.step.inputs(batch, gen, state.step)
+        if bgs is not None:
+            inp.background = bgs[i]
+        losses.append(float(runner.step.run(state, inp)["loss"]))
+        state = dataclasses.replace(state, step=state.step + 1)
+    return state, losses
+
+
+def test_graph_chunk_matches_eager_chunk(gen, tmp_path):
+    """One chunk as a CUDA graph (step 1 eager, 4 replays) against the
+    per-step loop from one state, perm and backgrounds: per-step losses
+    within 1e-4 relative (atomics), each replay read its camera, the Adam
+    counts, step counter and visibility counts equal, every kernel counted
+    once per step."""
+    from qed_splatter_tpu_torch.engine.checkpoint import copy_state
+    from qed_splatter_tpu_torch.engine.scan_runner import state_tensors
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+    from qed_splatter_tpu_torch.ops import tiles
+
+    t = _room_trainer(tmp_path)
+    runner, ds = t._get_scan_fn(1, 5, True, t.state.params.capacity)
+    perm = t._next_perm(5)
+    bgs = t._backgrounds(0, 5)
+    for kern in (rp.COMPOSITE, rp.COMPOSITE_BWD, tiles.SLAB_GATHER):
+        kern.reset()
+    a, metrics = runner(copy_state(t.state, "cuda"), perm, bgs)
+    torch.cuda.synchronize()
+    assert (runner.captures, runner.replays) == (1, 4)
+    assert rp.COMPOSITE_BWD.launches == 5
+    assert rp.COMPOSITE.launches == tiles.SLAB_GATHER.launches == 5
+    rows = dict(zip(runner.names, metrics.cpu().numpy().T))
+    np.testing.assert_array_equal(rows["cam_idx"],
+                                  ds.data["cam_idx"].cpu().numpy()[perm])
+    b, losses = _eager_chunk(runner, copy_state(t.state, "cuda"), perm, bgs)
+    np.testing.assert_allclose(rows["loss"], losses, rtol=1e-4)
+    assert int(runner.step_counter) == a.step == b.step == 5
+    for g in a.opt_state:
+        assert int(a.opt_state[g]["count"]) == int(b.opt_state[g]["count"])
+    assert torch.equal(a.stats.vis_count, b.stats.vis_count)
+    assert [x.data_ptr() for x in state_tensors(a)] == [
+        x.data_ptr() for x in runner._bound]
+    # a second chunk replays all five steps
+    runner(a, t._next_perm(5), t._backgrounds(5, 5))
+    assert (runner.captures, runner.replays) == (1, 9)
+
+
+def test_graph_rebinds_after_refine_and_rollback(gen, tmp_path):
+    """A refine and a rollback hand the runner new tensors: they are copied
+    into the captured ones (no new capture), the replays read them."""
+    from qed_splatter_tpu_torch.engine.checkpoint import copy_state
+    from qed_splatter_tpu_torch.engine.scan_runner import state_tensors
+
+    t = _room_trainer(tmp_path, on_divergence="rollback")
+    t.train(max_steps=10, finalize=False)        # the refine at 10
+    [runner] = t._runners.values()
+    assert runner.captures == 1
+    bound = [x.data_ptr() for x in runner._bound]
+    assert [x.data_ptr() for x in state_tensors(t.state)] != bound
+    # the refined state through the graph and through the per-step loop
+    post = copy_state(t.state, "cuda")
+    perm, bgs = [0, 1, 2, 3, 4], t._backgrounds(10, 5)
+    a, metrics = runner(copy_state(post, "cuda"), perm, bgs)
+    _, losses = _eager_chunk(runner, copy_state(post, "cuda"), perm, bgs)
+    got = metrics[:, runner.names.index("loss")].cpu().numpy()
+    np.testing.assert_allclose(got, losses, rtol=1e-4)
+    assert runner.captures == 1
+    assert [x.data_ptr() for x in state_tensors(a)] == bound
+    # a poisoned state diverges and rolls back to the step-10 checkpoint
+    t.state.params.means.fill_(float("nan"))
+    t.train(max_steps=20, finalize=False)
+    assert t._rollbacks == 1 and t.state.step == 20
+    assert bool(torch.isfinite(t.state.params.means).all())
+    assert runner.captures == 1 and t._runners == {
+        k: runner for k in t._runners}
+
+
+def test_graph_outlives_the_ssim_band_cache(gen, tmp_path, monkeypatch):
+    """Every SSIM band matrix the captured step reads stays alive after the
+    cache drops it (the step holds them; a graph keeps none of its inputs
+    alive), and the replays still equal the per-step loop."""
+    import gc
+    import weakref
+
+    from qed_splatter_tpu_torch.engine.checkpoint import copy_state
+    from qed_splatter_tpu_torch.ops import ssim as ssim_mod
+
+    real, made = ssim_mod._band_matrix, []
+
+    def recording(*args):
+        band = real(*args)
+        made.append(weakref.ref(band))
+        return band
+
+    monkeypatch.setattr(ssim_mod, "_band_matrix", recording)
+    real.cache_clear()
+    t = _room_trainer(tmp_path)
+    runner, _ = t._get_scan_fn(1, 5, True, t.state.params.capacity)
+    state0 = copy_state(t.state, "cuda")
+    perm, bgs = t._next_perm(5), t._backgrounds(0, 5)
+    runner(copy_state(state0, "cuda"), perm, bgs)        # the capture
+    real.cache_clear()
+    others = [real(n, 11, 1.5, torch.device("cuda")) for n in range(40, 50)]
+    gc.collect()
+    assert made and all(ref() is not None for ref in made)
+    _, metrics = runner(copy_state(state0, "cuda"), perm, bgs)
+    got = metrics[:, runner.names.index("loss")].cpu().numpy()
+    _, losses = _eager_chunk(runner, copy_state(state0, "cuda"), perm, bgs)
+    assert runner.captures == 1 and np.isfinite(got).all()
+    np.testing.assert_allclose(got, losses, rtol=1e-4)
+    del others
+
+
+def test_host_sync_in_the_body_makes_capture_raise(gen, tmp_path):
+    """A host sync inside the captured body raises (the sync debug mode is
+    "error" during the capture); nothing falls back to eager replays."""
+    from qed_splatter_tpu_torch.engine.checkpoint import copy_state
+
+    t = _room_trainer(tmp_path)
+    runner, _ = t._get_scan_fn(1, 5, True, t.state.params.capacity)
+    real, calls = runner.step.run, []
+
+    def syncing(state, inp):
+        calls.append(1)
+        if len(calls) == 2:              # the capture, after the warm-up
+            float(state.params.means.sum())
+        return real(state, inp)
+
+    runner.step.run = syncing
+    try:
+        with pytest.raises(RuntimeError):
+            runner(copy_state(t.state, "cuda"), t._next_perm(5),
+                   t._backgrounds(0, 5))
+    finally:
+        runner.step.run = real
+    assert runner._graph is None and runner.replays == 0
+    torch.cuda.synchronize()

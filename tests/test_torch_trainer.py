@@ -266,8 +266,9 @@ def test_growth_canary_reverts_on_oom(dataset, tmp_path, monkeypatch,
 
 
 # ROADMAP items done since their options were refused here: 7 (the
-# mixed_precision kernels) and 12 (profile_dir, with the port's bench)
-PORTED_ITEMS = (7, 12)
+# mixed_precision kernels), 12 (profile_dir, with the port's bench), 1
+# (multi-step dispatch) and 2 (the attempt journal and supervise)
+PORTED_ITEMS = (7, 12, 1, 2)
 
 
 @pytest.mark.parametrize("kw,item", [
@@ -279,10 +280,17 @@ PORTED_ITEMS = (7, 12)
     (dict(model_kw=dict(use_bilateral_grid=True)), 6)])
 def test_trainer_refuses_unported(dataset, tmp_path, kw, item):
     if item in PORTED_ITEMS:
-        # ported since: the option builds a trainer (its runs are held in
-        # test_profile_dir_writes_a_trace and tests/test_torch_mixed_precision)
+        # ported since: the option builds a trainer and takes effect (its
+        # runs are held in test_profile_dir_writes_a_trace,
+        # tests/test_torch_mixed_precision, test_torch_scan_runner and
+        # test_torch_crash_recovery)
         t = Trainer(_config(dataset, tmp_path, **kw), device="cpu")
         assert t.config.mixed_precision == t.cfg.mixed_precision
+        if item == 1:
+            assert t._dispatch_chunk() == 4 and t._use_scan()
+        if item == 2:
+            assert t.config.supervise
+            assert t._journal.path == t.run_dir / "attempt_journal.jsonl"
         return
     name = kw.get("vis") or ""
     with pytest.raises(NotImplementedError,
@@ -353,11 +361,20 @@ def test_cli_train_on_the_cpu(dataset, tmp_path):
     assert (tmp_path / "qed-splatter" / "splat.ply").exists()
     assert ckpt.checkpoint_meta(tmp_path / "qed-splatter" / "ckpts")[
         "step"] == 3
-    for cmd in ("eval", "export", "render", "view", "init-pc", "eval-pc",
-                "train-multi"):
+    for cmd in ("eval", "export", "render", "view", "init-pc", "eval-pc"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             main([cmd])
     assert main(["nonsense"]) == 2
+    # train-multi is ported: two names for the one scene
+    for name in ("a", "b"):
+        (tmp_path / name).symlink_to(dataset, target_is_directory=True)
+    assert argv[:2] == ["--data", str(dataset)]
+    assert main(["train-multi", "--data", str(tmp_path / "a"), "--data",
+                 str(tmp_path / "b"), "--experiment-name", "m",
+                 *argv[2:]]) == 0
+    for name in ("a", "b"):
+        assert ckpt.checkpoint_meta(tmp_path / "m" / name / "ckpts")[
+            "step"] == 3
 
 
 def test_trainer_drive_raises_psnr_and_adds_gaussians(tmp_path):
