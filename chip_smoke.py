@@ -87,6 +87,25 @@ dispatch. multi-step dispatch (``engine/scan_runner.py``): (a) one chunk as
    (``QED_CRASH_ONCE_AT``): one restart, resumed from step 50, the journal
    matched; (d) ``cli train-multi``'s trainer on two names of the room,
    100 steps each, the graph pool before and after each scene's capture.
+pipeline. the tools a user runs before and after training, through
+   ``cli.main`` in this process, on the room and the trainer phase's run:
+   ``init-pc`` with the JAX package's defaults into ``init_pc.ply`` (the
+   seed cloud and transforms.json left as they are), one frame's
+   backprojection and one colorize batch of 8 held against the CPU, the
+   host core's voxel grid against ``ops/voxel.py`` (exactly under the
+   core's own key; the plain key differs on the back wall, which lies on a
+   multiple of the voxel: counted), then ``--colorize`` (at least 90% of
+   the points coloured); ``eval-pc`` against the seed cloud (the core's
+   distances equal the plain ``nn_distances`` on the card; accuracy p90 at
+   most 0.05 m, completeness at least 90%); ``eval`` of the final
+   checkpoint (PSNR, SSIM and depth abs_rel equal the run's own
+   ``eval_all`` within 1e-4), LPIPS of seeded random alex and vgg nets on
+   an eval frame against the CPU; ``render`` at 1296x840 in its three
+   modes (orbit with depth, the eval cameras, a 4-keyframe camera path),
+   frame 0 of each within one level of the plain path on 99.9% of pixels,
+   and the CLI's launches of the compositing forward and the gather as a
+   ``kernels`` row; ``export`` as .ply, .splat, point cloud and a cropped
+   .ply, each read back and counted.
 
 Each render or train phase resets the kernels' launch counts, drives the
 path, and fails unless every kernel of the path launched at least once per
@@ -104,8 +123,8 @@ of the loss, where the two paths' gradients differ by that pixel's whole
 weight, is counted and masked out of both.
 
 Prints the bench line, the tools' times, ``render_ms_per_frame`` /
-``train_ms_per_step`` / ``bench`` / ``trainer`` / ``dispatch`` and
-``kernels`` JSON lines,
+``train_ms_per_step`` / ``bench`` / ``trainer`` / ``dispatch`` /
+``pipeline`` and ``kernels`` JSON lines,
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. The gather's row in ``kernels`` is its
 rank mode, the one the main path launches; the gather mode's numbers are
@@ -895,69 +914,21 @@ class Capture:
         setattr(self.module, self.name, self.orig)
 
 
-def phase_scene(label, n_alive, capacity, k_cap, n_cams, reps, seed,
-                profile_dir):
-    import dataclasses
-
-    from qed_splatter_tpu_torch.configs import ModelConfig
+def frame_kernel_entries(params, c2w, K, width, height, cfg, step, label_k,
+                         launches, ranked):
+    """The ``kernels`` rows of the compositing forward and the window gather
+    (its rank mode) for one frame of ``render(train=False)``: each kernel
+    held against its plain version and timed, with the plain version and
+    the library form, on that frame's own inputs. ``launches`` are the main
+    path's counts by kernel, ``ranked`` the gather's rank-mode launches."""
     from qed_splatter_tpu_torch.models.splatfacto import render
     from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
     from qed_splatter_tpu_torch.ops import tiles
 
-    print(f"phase {label}: {n_alive} alive / {capacity} capacity, "
-          f"K={k_cap}, {W}x{H}, {n_cams} cameras", flush=True)
-    t0 = time.perf_counter()
-    params = make_scene(n_alive, capacity, seed)
-    torch.cuda.synchronize()
-    print(f"  scene init {time.perf_counter() - t0:.2f} s")
-    cfg = ModelConfig(max_per_tile=k_cap)
-    cams = cameras(n_cams)
-
-    # --- the main path: counts from 0, every camera once
-    rp.COMPOSITE.reset()
-    tiles.SLAB_GATHER.reset()
-    outs = [render(params, c2w, K, W, H, cfg, step=30_000) for c2w, K in cams]
-    torch.cuda.synchronize()
-    launches = {"composite": rp.COMPOSITE.launches,
-                "slab_gather": tiles.SLAB_GATHER.launches}
-    chunked = rp.COMPOSITE.variant_launches.get("chunked", 0)
-    ranked = tiles.SLAB_GATHER.variant_launches.get("ranks", 0)
-    print(f"  launches {launches}, chunked composite launches {chunked}, "
-          f"rank-mode slab_gather launches {ranked}")
-    check(all(v >= n_cams for v in launches.values()),
-          "every kernel launched on the main path")
-    check(ranked >= n_cams, "the binning took the gather's fused rank mode")
-    if k_cap > rp.K_CHUNK:
-        check(chunked >= n_cams, "the compositor's chunked path ran")
-    for o in outs:
-        check(tuple(o.rgb.shape) == (H, W, 3)
-              and tuple(o.depth.shape) == (H, W, 1)
-              and tuple(o.accumulation.shape) == (H, W, 1),
-              "output shapes")
-        check(bool(torch.isfinite(o.rgb).all() & torch.isfinite(o.depth).all()
-                   & torch.isfinite(o.accumulation).all()),
-              "rgb, depth and alpha finite")
-    o = outs[0]
-    print(f"  frame 0: mean alpha {float(o.accumulation.mean()):.4f}, "
-          f"tile_max_count {int(o.tile_max_count)}, tile_overflow "
-          f"{int(o.tile_overflow)}, bbox_truncated {int(o.bbox_truncated)}")
-
-    # --- one frame against the plain path on the card
-    c2w, K = cams[0]
-    plain = render(params, c2w, K, W, H,
-                   dataclasses.replace(cfg, use_pallas=False), step=30_000)
-    e_rgb = max_abs(o.rgb, plain.rgb)
-    e_acc = max_abs(o.accumulation, plain.accumulation)
-    e_dep = float(((o.depth - plain.depth).abs()
-                   / plain.depth.abs().clamp(min=1.0)).max())
-    print(f"  frame vs plain path: rgb {e_rgb:.3e}, alpha {e_acc:.3e}, "
-          f"depth (relative) {e_dep:.3e}")
-    check(max(e_rgb, e_acc, e_dep) <= TOL, f"frame matches plain within {TOL}")
-
     # --- the kernels on this frame's own inputs
     with Capture(rp, "composite_tiles_chunked") as cap_c, \
             Capture(tiles, "slab_ranks") as cap_g:
-        render(params, c2w, K, W, H, cfg, step=30_000)
+        render(params, c2w, K, width, height, cfg, step=step)
     torch.cuda.synchronize()
     g_args, g_kw = cap_c.args, cap_c.kwargs
     counts = g_kw["tile_counts"]
@@ -995,19 +966,6 @@ def phase_scene(label, n_alive, capacity, k_cap, n_cams, reps, seed,
     want = tiles.slab_gather_ref(keys, starts, kk, fill)
     check(torch.equal(got, want), "slab_gather on frame inputs exact")
     del got, want
-
-    # --- times
-    fr = []
-    for _ in range(reps):
-        for c2w_i, K_i in cams:
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            render(params, c2w_i, K_i, W, H, cfg, step=30_000)
-            torch.cuda.synchronize()
-            fr.append((time.perf_counter() - t1) * 1e3)
-    frame_ms = statistics.median(fr)
-    print(f"  render: median {frame_ms:.3f} ms per frame over {len(fr)} "
-          f"frames (min {min(fr):.3f}, max {max(fr):.3f})")
 
     # the kernel alone (replays of a captured graph), and the differentiable
     # entry point launched from the host, whose cost per call is of the
@@ -1083,6 +1041,102 @@ def phase_scene(label, n_alive, capacity, k_cap, n_cams, reps, seed,
           + ", ".join(f"{name} {v:.4f}" for name, v in host.items()))
     del padded, windows, minus
 
+    entries = [
+        entry("composite", label_k, launches["composite"], err_abs, ms_c,
+              plain_c, None, b_bytes, b_ops),
+        # one kernel, two modes: the row is the rank mode, which is every
+        # launch of the main path (checked above); the gather mode, launched
+        # here only to be held and timed, goes beside it
+        entry("slab_gather", label_k + ", rank mode", launches["slab_gather"],
+              0.0, ms_r, plain_r, lib_r, r_bytes / PEAK_BYTES_PER_S * 1e3,
+              0.0),
+    ]
+    # ms is the kernel alone (graph replays); launched from the host through
+    # its differentiable entry point, as earlier runs timed it:
+    entries[0]["ms_launched_from_host"] = host_c
+    entries[-1]["gather_mode"] = {
+        "launches": launches["slab_gather"] - ranked, "max_abs_err": 0.0,
+        "ms": ms_g, "plain_ms": plain_g, "library_ms": lib_g,
+        "bound_ms": g_bytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    return entries
+
+
+def phase_scene(label, n_alive, capacity, k_cap, n_cams, reps, seed,
+                profile_dir):
+    import dataclasses
+
+    from qed_splatter_tpu_torch.configs import ModelConfig
+    from qed_splatter_tpu_torch.models.splatfacto import render
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+    from qed_splatter_tpu_torch.ops import tiles
+
+    print(f"phase {label}: {n_alive} alive / {capacity} capacity, "
+          f"K={k_cap}, {W}x{H}, {n_cams} cameras", flush=True)
+    t0 = time.perf_counter()
+    params = make_scene(n_alive, capacity, seed)
+    torch.cuda.synchronize()
+    print(f"  scene init {time.perf_counter() - t0:.2f} s")
+    cfg = ModelConfig(max_per_tile=k_cap)
+    cams = cameras(n_cams)
+
+    # --- the main path: counts from 0, every camera once
+    rp.COMPOSITE.reset()
+    tiles.SLAB_GATHER.reset()
+    outs = [render(params, c2w, K, W, H, cfg, step=30_000) for c2w, K in cams]
+    torch.cuda.synchronize()
+    launches = {"composite": rp.COMPOSITE.launches,
+                "slab_gather": tiles.SLAB_GATHER.launches}
+    chunked = rp.COMPOSITE.variant_launches.get("chunked", 0)
+    ranked = tiles.SLAB_GATHER.variant_launches.get("ranks", 0)
+    print(f"  launches {launches}, chunked composite launches {chunked}, "
+          f"rank-mode slab_gather launches {ranked}")
+    check(all(v >= n_cams for v in launches.values()),
+          "every kernel launched on the main path")
+    check(ranked >= n_cams, "the binning took the gather's fused rank mode")
+    if k_cap > rp.K_CHUNK:
+        check(chunked >= n_cams, "the compositor's chunked path ran")
+    for o in outs:
+        check(tuple(o.rgb.shape) == (H, W, 3)
+              and tuple(o.depth.shape) == (H, W, 1)
+              and tuple(o.accumulation.shape) == (H, W, 1),
+              "output shapes")
+        check(bool(torch.isfinite(o.rgb).all() & torch.isfinite(o.depth).all()
+                   & torch.isfinite(o.accumulation).all()),
+              "rgb, depth and alpha finite")
+    o = outs[0]
+    print(f"  frame 0: mean alpha {float(o.accumulation.mean()):.4f}, "
+          f"tile_max_count {int(o.tile_max_count)}, tile_overflow "
+          f"{int(o.tile_overflow)}, bbox_truncated {int(o.bbox_truncated)}")
+
+    # --- one frame against the plain path on the card
+    c2w, K = cams[0]
+    plain = render(params, c2w, K, W, H,
+                   dataclasses.replace(cfg, use_pallas=False), step=30_000)
+    e_rgb = max_abs(o.rgb, plain.rgb)
+    e_acc = max_abs(o.accumulation, plain.accumulation)
+    e_dep = float(((o.depth - plain.depth).abs()
+                   / plain.depth.abs().clamp(min=1.0)).max())
+    print(f"  frame vs plain path: rgb {e_rgb:.3e}, alpha {e_acc:.3e}, "
+          f"depth (relative) {e_dep:.3e}")
+    check(max(e_rgb, e_acc, e_dep) <= TOL, f"frame matches plain within {TOL}")
+
+    # --- times
+    fr = []
+    for _ in range(reps):
+        for c2w_i, K_i in cams:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            render(params, c2w_i, K_i, W, H, cfg, step=30_000)
+            torch.cuda.synchronize()
+            fr.append((time.perf_counter() - t1) * 1e3)
+    frame_ms = statistics.median(fr)
+    print(f"  render: median {frame_ms:.3f} ms per frame over {len(fr)} "
+          f"frames (min {min(fr):.3f}, max {max(fr):.3f})")
+
+    entries = frame_kernel_entries(params, c2w, K, W, H, cfg, 30_000,
+                                   f"scene {label}, K={k_cap}", launches,
+                                   ranked)
+
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile
 
@@ -1107,24 +1161,6 @@ def phase_scene(label, n_alive, capacity, k_cap, n_cams, reps, seed,
               f"ms wall under the profiler (idle share "
               f"{1 - busy_ms / wall_ms:.3f})")
 
-    label_k = f"scene {label}, K={k_cap}"
-    entries = [
-        entry("composite", label_k, launches["composite"], err_abs, ms_c,
-              plain_c, None, b_bytes, b_ops),
-        # one kernel, two modes: the row is the rank mode, which is every
-        # launch of the main path (checked above); the gather mode, launched
-        # here only to be held and timed, goes beside it
-        entry("slab_gather", label_k + ", rank mode", launches["slab_gather"],
-              0.0, ms_r, plain_r, lib_r, r_bytes / PEAK_BYTES_PER_S * 1e3,
-              0.0),
-    ]
-    # ms is the kernel alone (graph replays); launched from the host through
-    # its differentiable entry point, as earlier runs timed it:
-    entries[0]["ms_launched_from_host"] = host_c
-    entries[-1]["gather_mode"] = {
-        "launches": launches["slab_gather"] - ranked, "max_abs_err": 0.0,
-        "ms": ms_g, "plain_ms": plain_g, "library_ms": lib_g,
-        "bound_ms": g_bytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
     del outs, plain, params
     torch.cuda.empty_cache()
     return entries, frame_ms
@@ -1916,7 +1952,9 @@ def write_room(root):
     return time.perf_counter() - t0
 
 
-def phase_trainer(seed, profile_dir, root, t_data):
+def phase_trainer(seed, profile_dir, root, t_data, out_dir):
+    """The trainer phase; its run (checkpoints, metrics) stays in
+    ``out_dir`` for the pipeline phase."""
     import dataclasses
     import tempfile
     from pathlib import Path
@@ -1934,8 +1972,7 @@ def phase_trainer(seed, profile_dir, root, t_data):
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         trace_dir = Path(tmp) / "trace"
-        cfg = trainer_config(str(root), str(Path(tmp) / "out"), seed,
-                             str(trace_dir))
+        cfg = trainer_config(str(root), str(out_dir), seed, str(trace_dir))
         t0 = time.perf_counter()
         dm = FullImageDatamanager(cfg.data, seed=seed)
         trainer = Trainer(cfg, datamanager=dm)
@@ -2594,6 +2631,445 @@ def phase_dispatch(seed, profile_dir, root, per_step):
     print(f"  dispatch phase wall time {out['wall_s']:.2f} s")
     return out
 
+# --------------------------------------------------------- pipeline phase
+
+PIPELINE_ORBIT_FRAMES = 8
+# a CLI frame's uint8 levels against the plain path's: equal within 1 on at
+# least this share of the pixels (the kernel and plain colours differ by
+# rounding, which can cross a level boundary)
+PIPELINE_PIXEL_SHARE = 0.999
+# init-pc on the room: the share of points colorize must colour; the eval-pc
+# limits of the cloud against the room's own seed cloud (both sample the
+# room's surfaces, so a miss is a fault)
+PIPELINE_COLORED, PIPELINE_ACC_P90, PIPELINE_COMPLETE = 0.9, 0.05, 90.0
+# the room's surfaces (about 95 m^2) on a 0.05 m grid hold some 38,000 cells
+PIPELINE_MIN_POINTS = 10_000
+# the tests' random LPIPS widths, by torchvision feature index
+LPIPS_WIDTHS = {0: 16, 2: 16, 3: 24, 5: 24, 6: 32, 7: 32, 8: 32, 10: 32,
+                12: 32, 14: 32, 17: 48, 19: 48, 21: 48, 24: 48, 26: 48,
+                28: 48}
+
+
+def random_lpips_net(net_type, rng):
+    """Seeded random LPIPS weights (convolutions, biases, heads) at narrow
+    widths, as the tests make them: no pretrained weights are shipped."""
+    from qed_splatter_tpu_torch.ops.lpips import _ARCH
+
+    arch = _ARCH[net_type]
+    convs, biases, heads = [], [], []
+    cin = 3
+    for idx, _, _ in arch["convs"]:
+        cout = LPIPS_WIDTHS[idx]
+        k = {(0, "alex"): 11, (3, "alex"): 5}.get((idx, net_type), 3)
+        convs.append(rng.normal(0, 0.2, (cout, cin, k, k)).astype(np.float32))
+        biases.append(rng.normal(0, 0.1, (cout,)).astype(np.float32))
+        cin = cout
+        if idx in arch["taps"]:
+            heads.append(rng.uniform(0, 1, (1, cout, 1, 1)).astype(
+                np.float32))
+    return convs, biases, heads
+
+
+def host_ms(fn, reps):
+    """Mean wall ms per call of a host function over ``reps`` calls."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` in this process, so the kernels' counts see its
+    launches; its printed lines are echoed (progress lines left out) and
+    returned. Fails unless it exits 0."""
+    import contextlib
+    import io
+
+    from qed_splatter_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if line.strip() and not line.lstrip().startswith("frame "):
+            print(f"    | {line}")
+    check(rc == 0, f"cli {argv[0]} exited 0")
+    return text
+
+
+def printed_values(text):
+    """The ``name: number`` lines a CLI printed, as a dict."""
+    out = {}
+    for line in text.splitlines():
+        k, sep, v = line.strip().partition(": ")
+        if sep:
+            try:
+                out[k] = float(v.rstrip("%"))
+            except ValueError:
+                pass
+    return out
+
+
+def key_codes(keys):
+    """[N, 3] integral cell keys (|k| < 2^20) as one int64 each."""
+    k = keys.to(torch.int64) + (1 << 20)
+    return (k[:, 0] << 42) | (k[:, 1] << 21) | k[:, 2]
+
+
+def hold_voxel_keys(points, core, voxel):
+    """The host core's voxel grid (``core``, numpy) of ``points`` (on the
+    card) against the plain version. The core keys a point by
+    ``floor(p * (1 / voxel))`` in float32, ``ops/voxel.py`` (and the JAX
+    package's numpy) by ``floor(p / voxel)``: the core must equal
+    ``cell_means`` under its own key exactly, and the plain grid must
+    equal the core's on every cell no point with two different keys
+    touches; each plain centroid lies within one voxel of a core one, and
+    the cell counts agree within 0.1%. (On the CPU the room's back wall
+    backprojects exactly onto z = 5.2, where the keys part for all of its
+    points; the card's backprojection lands off that value.)"""
+    from qed_splatter_tpu_torch.ops.knn import nn_distances
+    from qed_splatter_tpu_torch.ops.voxel import cell_means, voxel_downsample
+
+    core_t = torch.as_tensor(core, device=points.device)
+    inv = float(np.float32(1.0) / np.float32(voxel))
+    k_core = torch.floor(points * inv)
+    k_plain = torch.floor(points / voxel)
+    same, _ = cell_means(points, k_core)
+    e_same = max(float(nn_distances(same, core_t).max()),
+                 float(nn_distances(core_t, same).max()))
+    check(len(same) == len(core) and e_same <= 1e-6,
+          f"the core's grid equals cell_means under its own key ({len(core)} "
+          f"cells, centroids within {e_same:.1e} <= 1e-6)")
+    plain, _ = voxel_downsample(points, voxel)
+    differ = (k_core != k_plain).any(1)
+    touched = key_codes(torch.cat([k_core[differ], k_plain[differ]]))
+    untouched = ~torch.isin(key_codes(torch.unique(k_plain, dim=0)),
+                            touched)
+    near = nn_distances(plain, core_t)
+    e_un = float(near[untouched].max()) if bool(untouched.any()) else 0.0
+    out = {"points": len(points), "cells_core": len(core),
+           "cells_plain": len(plain),
+           "points_keys_differ": int(differ.sum()),
+           "points_keys_differ_by_axis": (k_core != k_plain).sum(0).tolist(),
+           "cells_touched": int(torch.unique(touched).numel()),
+           "max_nearest_core_centroid": float(near.max())}
+    print(f"  voxel grid of {len(points)} points at {voxel}: core "
+          f"{len(core)} cells, plain {len(plain)} (difference "
+          f"{len(core) - len(plain)}); {out['points_keys_differ']} points "
+          f"have two keys (by axis {out['points_keys_differ_by_axis']}), "
+          f"touching {out['cells_touched']} cells; a plain centroid's "
+          f"nearest core centroid at most {float(near.max()):.2e}")
+    check(e_un <= 1e-6, f"plain and core cells equal where no point has two "
+          f"keys (within {e_un:.1e} <= 1e-6)")
+    check(abs(len(core) - len(plain)) <= 1e-3 * len(plain),
+          "the cell counts within 0.1%")
+    check(out["max_nearest_core_centroid"] <= voxel,
+          "each plain centroid has a core centroid within one voxel")
+    return out
+
+
+def phase_pipeline(seed, root, run_dir, work):
+    """The tools a user runs before and after training, through the CLI in
+    this process, on the room and the trainer phase's run: ``init-pc`` with
+    the JAX package's defaults and its colorize, ``eval-pc``, ``eval`` (with
+    LPIPS of seeded random nets), ``render`` in its three modes and
+    ``export`` in its four forms."""
+    import dataclasses
+
+    from qed_splatter_tpu_torch import cli, native
+    from qed_splatter_tpu_torch.configs import DataConfig
+    from qed_splatter_tpu_torch.data import init_pc, png
+    from qed_splatter_tpu_torch.data.ply import read_ply
+    from qed_splatter_tpu_torch.data.transforms_json import parse_transforms
+    from qed_splatter_tpu_torch.engine import checkpoint as ckpt
+    from qed_splatter_tpu_torch.models.crop import CropBox
+    from qed_splatter_tpu_torch.models.splatfacto import render
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+    from qed_splatter_tpu_torch.ops import tiles
+    from qed_splatter_tpu_torch.ops.backproject import backproject_depth, \
+        colorize_points
+    from qed_splatter_tpu_torch.ops.knn import nn_distances
+    from qed_splatter_tpu_torch.ops.lpips import LPIPS
+
+    print(f"phase pipeline: init-pc, eval-pc, eval, render and export on "
+          f"the room ({W}x{H}, {TRAINER_FRAMES} frames) and the trainer "
+          f"phase's run", flush=True)
+    t_phase = time.perf_counter()
+    work.mkdir(parents=True, exist_ok=True)
+    out = {}
+    args = init_pc.InitPcArgs(data=str(root))          # JAX's defaults
+    contents = json.loads((root / "transforms.json").read_text())
+    frames = [f for f in contents["frames"] if "depth_file_path" in f]
+
+    # --- 1. init-pc into its own file, the seed cloud left as it is
+    t0 = time.perf_counter()
+    run_cli(["init-pc", "--data", root, "--output-name", "init_pc.ply",
+             "--no-update-transforms"])
+    t_init = time.perf_counter() - t0
+    cloud = read_ply(root / "init_pc.ply").positions
+    print(f"  init-pc: {len(cloud)} points from {len(frames)} frames in "
+          f"{t_init:.2f} s, {t_init / len(frames):.3f} s per frame (depth "
+          f"decode, backprojection, the core's voxel grid, the frame's PLY)")
+    check(len(cloud) > PIPELINE_MIN_POINTS,
+          f"init-pc wrote a cloud of the room (> {PIPELINE_MIN_POINTS})")
+    check(json.loads((root / "transforms.json").read_text()) == contents,
+          "transforms.json and its ply_file_path untouched")
+
+    f0 = frames[0]
+    depth = init_pc.frame_depth(root, f0, args.depth_unit_scale_factor)
+    K0 = init_pc._frame_intrinsics(contents, f0)
+    c2w_cv = init_pc.frame_c2w_cv(f0)
+
+    def backproject(d):
+        return backproject_depth(d, K0, c2w_cv, args.depth_max,
+                                 stride=args.stride)
+    d_card = torch.as_tensor(depth, device="cuda")
+    pg, vg = backproject(d_card)
+    pc, vc = backproject(torch.as_tensor(depth))
+    err_bp = max_abs(pg.cpu(), pc)
+    check(torch.equal(vg.cpu(), vc) and err_bp <= TOL,
+          f"frame 0's backprojection on the card equals the CPU's "
+          f"({err_bp:.2e} <= {TOL})")
+    bp_ms = cuda_ms(lambda: backproject(d_card), 20)
+    pts = pg[vg].cpu().numpy()
+    core_ms = host_ms(lambda: native.voxel_downsample_native(
+        pts, args.frame_voxel_size), 5)
+    print(f"  per frame: backprojection {bp_ms:.3f} ms on the card "
+          f"({len(pts)} points at stride {args.stride}), the core's voxel "
+          f"grid {core_ms:.3f} ms on the host")
+
+    # the host core against the plain version on the final grid's input
+    cached = sorted((root / "init_pc_cache" / "frames").glob("frame_*.ply"))
+    merged = init_pc.streaming_merge(cached, args.merge_voxel_size,
+                                     args.max_points)
+    core, _ = native.voxel_downsample_native(merged, args.voxel_size)
+    check(np.array_equal(core, cloud), "the CLI's cloud is the core's grid "
+          "of the merged frames")
+    vox = hold_voxel_keys(torch.as_tensor(merged, device="cuda"), core,
+                          args.voxel_size)
+    t0 = time.perf_counter()
+    run_cli(["init-pc", "--data", root, "--colorize", "--input-name",
+             "init_pc.ply", "--output-name", "init_pc_color.ply",
+             "--no-update-transforms"])
+    t_col = time.perf_counter() - t0
+    colors = read_ply(root / "init_pc_color.ply").colors
+    share = float((colors.astype(int).sum(-1) > 0).mean())
+    check(share >= PIPELINE_COLORED,
+          f"colorize coloured {share:.4f} >= {PIPELINE_COLORED} of points")
+    batch = [(png.to_rgb(png.read_png(root / f["file_path"])).astype(
+        np.float32) / 255.0, init_pc.frame_depth(
+            root, f, args.depth_unit_scale_factor),
+        init_pc.frame_w2c_opencv(f), init_pc._frame_intrinsics(contents, f))
+        for f in frames[:8]]
+    pos_card = torch.as_tensor(cloud, device="cuda")
+    sg, cg = init_pc.colorize_batch(pos_card, batch, args)
+    sc, cc = init_pc.colorize_batch(torch.as_tensor(cloud), batch, args)
+    err_col = float(np.abs(sg - sc).max())
+    check(np.array_equal(cg, cc) and err_col <= TOL,
+          f"a colorize batch of 8 on the card equals the CPU's (counts "
+          f"equal, sums {err_col:.2e} <= {TOL})")
+    stacked = [torch.as_tensor(np.stack(x), device="cuda")
+               for x in zip(*batch)]
+    col_ms = cuda_ms(lambda: colorize_points(
+        pos_card, *stacked, args.depth_max, args.depth_tolerance,
+        args.depth_tolerance_rel), 10)
+    col_up_ms = cuda_ms(lambda: init_pc.colorize_batch(pos_card, batch,
+                                                       args), 3)
+    print(f"  colorize: {share:.4f} of {len(cloud)} points coloured in "
+          f"{t_col:.2f} s; a batch of 8 frames {col_ms:.3f} ms on the card, "
+          f"{col_up_ms:.3f} ms with its upload from the host")
+    out["init_pc"] = {
+        "points": len(cloud), "s_per_frame": t_init / len(frames),
+        "backproject_ms": bp_ms, "core_voxel_ms": core_ms,
+        "colorize_s": t_col, "colorize_batch8_ms": col_ms,
+        "colorize_batch8_with_upload_ms": col_up_ms, "colored": share,
+        "voxel": vox}
+    del pg, pc, d_card, stacked
+
+    # --- 2. eval-pc of the cloud against the room's seed cloud
+    gt = read_ply(root / "sparse_pc.ply").positions
+    vals = printed_values(run_cli(["eval-pc", "--pred", root / "init_pc.ply",
+                                   "--gt", root / "sparse_pc.ply"]))
+    acc, comp = vals["accuracy_p90"], vals["completeness_0.05"]
+    times = {}
+    for q, r, name in ((cloud, gt, "init_pc -> sparse_pc"),
+                       (gt, cloud, "sparse_pc -> init_pc")):
+        d_core = native.nn_distances_native(q, r)
+        qg = torch.as_tensor(q, device="cuda")
+        rg = torch.as_tensor(r, device="cuda")
+        d_plain = nn_distances(qg, rg).cpu().numpy()
+        excess = float((np.abs(d_core - d_plain)
+                        - (1e-6 + 1e-5 * np.abs(d_plain))).max())
+        check(excess <= 0, f"{name}: the core's distances equal the plain "
+              f"version's on the card (rtol 1e-5, atol 1e-6)")
+        times[name] = (host_ms(lambda: native.nn_distances_native(q, r), 3),
+                       cuda_ms(lambda: nn_distances(qg, rg), 3))
+    print(f"  eval-pc: accuracy p90 {acc:.6f} m, completeness {comp:.2f}%; "
+          + ", ".join(f"{k}: core {a:.2f} ms (host), plain {b:.2f} ms "
+                      f"(card)" for k, (a, b) in times.items()))
+    check(acc <= PIPELINE_ACC_P90 and comp >= PIPELINE_COMPLETE,
+          f"accuracy p90 <= {PIPELINE_ACC_P90} m, completeness >= "
+          f"{PIPELINE_COMPLETE}%")
+    out["eval_pc"] = {"accuracy_p90": acc, "completeness": comp,
+                      "core_ms": [a for a, _ in times.values()],
+                      "plain_ms": [b for _, b in times.values()]}
+
+    # --- 3. eval and 4. render: the main path, counted from 0
+    ck = run_dir / "ckpts"
+    meta = ckpt.checkpoint_meta(ck)
+    want = [r for r in metrics_rows(run_dir, "eval_all")
+            if r["step"] == meta["step"]][-1]
+    scene = parse_transforms(DataConfig(data=str(root)))
+    path_json = work / "camera_path.json"
+    keys = []
+    for fr in scene.frames[:4]:
+        c = fr.camera
+        keys.append({"camera_to_world": np.asarray(c.c2w).reshape(-1)
+                     .tolist(), "fov": math.degrees(
+                         2 * math.atan(c.height / (2 * c.fy)))})
+    path_json.write_text(json.dumps({"render_width": W, "render_height": H,
+                                     "camera_path": keys}))
+    modes = {"orbit": ["--mode", "orbit", "--num-frames",
+                       PIPELINE_ORBIT_FRAMES, "--width", W, "--height", H,
+                       "--depth"],
+             "eval": ["--mode", "eval", "--data", root],
+             "path": ["--mode", "path", "--camera-path", path_json]}
+    rp.COMPOSITE.reset()
+    tiles.SLAB_GATHER.reset()
+    t0 = time.perf_counter()
+    got = printed_values(run_cli(["eval", "--data", root, "--load-dir", ck,
+                                  "--output-dir", work / "eval"]))
+    t_eval = time.perf_counter() - t0
+    wall = {}
+    for mode, extra in modes.items():
+        t0 = time.perf_counter()
+        run_cli(["render", "--load-dir", ck, "--output-dir",
+                 work / f"render_{mode}", *extra])
+        wall[mode] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {"composite": rp.COMPOSITE.launches,
+                "slab_gather": tiles.SLAB_GATHER.launches}
+    ranked = tiles.SLAB_GATHER.variant_launches.get("ranks", 0)
+    print(f"  launches of eval and the three renders: {launches}, rank mode "
+          f"{ranked}, chunked composite "
+          f"{rp.COMPOSITE.variant_launches.get('chunked', 0)}")
+
+    for k in ("rgb_psnr", "rgb_ssim", "depth_abs_rel"):
+        print(f"  eval {k}: {got[k]:.6f}, the trainer run's eval_all at step "
+              f"{meta['step']}: {want[k]:.6f}")
+        check(abs(got[k] - want[k]) <= TOL, f"eval's {k} equals the trainer "
+              f"run's within {TOL}")
+    print(f"  eval: {t_eval:.2f} s wall for {scene.eval_indices.size} "
+          f"eval frames, the checkpoint's load and the dataset's parse")
+
+    state = ckpt.load_state(ck)
+    cfg = ckpt.model_config_from_meta(meta)
+    ev = scene.frames[int(scene.eval_indices[0])]
+    cam = ev.camera
+    pred = render(state.params, cam.c2w, cam.intrinsics_matrix(), cam.width,
+                  cam.height, cfg, step=state.step).rgb
+    gt_img = torch.as_tensor(png.to_rgb(png.read_png(ev.image_path)).astype(
+        np.float32) / 255.0, device="cuda")
+    rng = np.random.default_rng(seed)
+    lp = {}
+    for net in ("alex", "vgg"):
+        m = LPIPS(*random_lpips_net(net, rng), net_type=net)
+        v_card = float(m(pred, gt_img))
+        v_cpu = float(m(pred.cpu(), gt_img.cpu()))
+        rel = abs(v_card - v_cpu) / abs(v_cpu)
+        ms = cuda_ms(lambda: m(pred, gt_img), 5)
+        print(f"  LPIPS ({net}, seeded random net) of eval frame 0 at "
+              f"{cam.width}x{cam.height}: {v_card:.6f} on the card, "
+              f"{v_cpu:.6f} on the CPU (rel {rel:.2e}), {ms:.3f} ms per "
+              f"image")
+        check(math.isfinite(v_card) and rel <= TOL,
+              f"LPIPS ({net}) on the card equals the CPU's within {TOL}")
+        lp[net] = {"value": v_card, "rel_err": rel, "ms": ms}
+    out["eval"] = {"wall_s": t_eval, **{k: got[k] for k in (
+        "rgb_psnr", "rgb_ssim", "depth_abs_rel")}, "lpips_random": lp}
+
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    rows = {}
+    for mode, extra in modes.items():
+        argv = ["--load-dir", str(ck), *map(str, extra)]
+        ns = cli.render_parser().parse_args(argv)
+        cams = cli.render_cameras(ns, state.params)
+        d = work / f"render_{mode}"
+        check(len(list(d.glob("frame_*.png"))) == len(cams)
+              and (mode != "orbit"
+                   or len(list(d.glob("depth_*.png"))) == len(cams)),
+              f"render --mode {mode} wrote {len(cams)} frames")
+        c2w, K, w, h = cams[0]
+        frame = png.read_png(d / "frame_00000.png")
+        plain_rgb = cli.to_uint8(render(state.params, c2w, K, w, h,
+                                        plain_cfg, step=state.step).rgb)
+        close = float((np.abs(frame.astype(int) - plain_rgb.astype(int))
+                       <= 1).all(-1).mean())
+        check(frame.shape == (H, W, 3) and close >= PIPELINE_PIXEL_SHARE,
+              f"render --mode {mode}: frame 0 within 1 level of the plain "
+              f"path on {close:.6f} >= {PIPELINE_PIXEL_SHARE} of pixels")
+
+        def one():
+            return render(state.params, c2w, K, w, h, cfg, step=state.step)
+        dev_ms = cuda_ms(one, 5)
+        fr_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cli.to_uint8(one().rgb)
+            fr_ms.append((time.perf_counter() - t1) * 1e3)
+        enc_ms = host_ms(lambda: png.encode_png(frame), 3)
+        cli_ms = wall[mode] / len(cams) * 1e3
+        print(f"  render --mode {mode}: {len(cams)} frames at {w}x{h}, "
+              f"{cli_ms:.1f} ms wall per frame in the CLI (checkpoint load "
+              f"included); render {dev_ms:.3f} ms per frame between CUDA "
+              f"events, {statistics.median(fr_ms):.3f} ms with the readback "
+              f"(host clock), PNG encode {enc_ms:.1f} ms per frame")
+        rows[mode] = {"frames": len(cams), "cli_ms_per_frame": cli_ms,
+                      "render_ms": dev_ms,
+                      "render_readback_ms": statistics.median(fr_ms),
+                      "png_encode_ms": enc_ms, "within_1_level": close}
+    check(launches["composite"] >= sum(r["frames"] for r in rows.values())
+          and ranked >= sum(r["frames"] for r in rows.values()),
+          "every CLI frame launched the compositing forward and the "
+          "window gather's rank mode")
+    out["render"] = rows
+    c2w, K, w, h = cli.render_cameras(cli.render_parser().parse_args(
+        ["--load-dir", str(ck), *map(str, modes["orbit"])]), state.params)[0]
+    entries = frame_kernel_entries(
+        state.params, c2w, K, w, h, cfg, state.step,
+        f"eval and render CLI, trained room, K={cfg.max_per_tile}", launches,
+        ranked)
+
+    # --- 5. export in its four forms
+    alive = state.params.alive
+    means = state.params.means[alive]
+    n_alive = int(alive.sum())
+    c = means.mean(0)
+    half = (means.max(0).values - means.min(0).values) / 4
+    box = CropBox(center=tuple(c.tolist()), size=tuple((2 * half).tolist()))
+    inside = int(box.within(means).sum())
+    crop = ["--crop-center", *c.tolist(), "--crop-size",
+            *(2 * half).tolist()]
+    exports = {"splat.ply": ([], n_alive), "splat.splat": ([], n_alive),
+               "points.ply": (["--pointcloud"], n_alive),
+               "crop.ply": (crop, inside)}
+    for name, (extra, n) in exports.items():
+        path = work / name
+        run_cli(["export", "--load-dir", ck, "--output", path, *extra])
+        got_n = (path.stat().st_size / 32 if name.endswith(".splat")
+                 else len(read_ply(path)))
+        check(got_n == n, f"export {name}: {got_n:.0f} gaussians "
+              f"({n} alive{', inside the box' if extra is crop else ''})")
+    check(0 < inside < n_alive, "the crop box holds a strict subset")
+    out["export"] = {"alive": n_alive, "cropped": inside}
+    del state, pred, gt_img
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  pipeline phase wall time {out['wall_s']:.2f} s")
+    return entries, out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2671,11 +3147,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp) / "room"
         t_data = write_room(root)
-        trainer = phase_trainer(args.seed, args.profile, root, t_data)
+        trainer = phase_trainer(args.seed, args.profile, root, t_data,
+                                Path(tmp) / "trainer")
         dispatch = phase_dispatch(args.seed, args.profile, root, trainer)
+        entries, pipeline = phase_pipeline(
+            args.seed, root, Path(tmp) / "trainer" / "qed-splatter",
+            Path(tmp) / "pipeline")
+        kernels += entries
     print(json.dumps({"render_ms_per_frame": frames,
                       "train_ms_per_step": steps, "bench": bench_line,
-                      "trainer": trainer, "dispatch": dispatch}))
+                      "trainer": trainer, "dispatch": dispatch,
+                      "pipeline": pipeline}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

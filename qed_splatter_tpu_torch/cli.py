@@ -1,20 +1,28 @@
-"""Command line of the port: ``train`` and ``train-multi`` (port of
-``cli.py``).
+"""Command line of the port (port of ``cli.py``).
 
     python -m qed_splatter_tpu_torch.cli train --data DIR [--device cpu]
         [--max-num-iterations N] [--model.max-per-tile 256 ...]
         [--supervise [--max-restarts 5]]
     python -m qed_splatter_tpu_torch.cli train-multi --data A --data B ...
+    python -m qed_splatter_tpu_torch.cli init-pc --data DIR [--stride 4]
+        [--colorize] [--output-name NAME] [--no-update-transforms] ...
+    python -m qed_splatter_tpu_torch.cli eval --data DIR --load-dir CKPTS
+    python -m qed_splatter_tpu_torch.cli render --load-dir CKPTS
+        [--mode orbit|eval|path] [--data DIR] [--camera-path PATH.json]
+        [--depth] [--crop-center X Y Z --crop-size SX SY SZ]
+    python -m qed_splatter_tpu_torch.cli export --load-dir CKPTS
+        [--output splat.ply|splat.splat] [--pointcloud] [--crop-* ...]
+    python -m qed_splatter_tpu_torch.cli eval-pc --pred recon.ply --gt scan.ply
 
 Every field of the config dataclasses is a flag, as in the JAX package's
-``qed train``: nested fields take dotted prefixes (``--model.sh-degree``),
+``qed``: nested fields take dotted prefixes (``--model.sh-degree``),
 booleans ``--x`` / ``--no-x``, Literal types become choices.
-``--device`` (default ``cuda``) picks where the trainer runs; on the GPU
-the command holds the device lock (``utils/chiplock.py``) for its life.
+``--device`` (default ``cuda``) picks where a command runs; on the GPU
+``train`` holds the device lock (``utils/chiplock.py``) for its life.
 ``--supervise`` runs the training in a child process and restarts it from
 the run's latest checkpoint when it dies (only the child takes the lock).
-The other subcommands of ``qed`` are not ported and raise, naming their
-ROADMAP item.
+``eval-pc`` runs on the host geometry core (``native.py``). ``view`` is not
+ported and raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -204,33 +212,269 @@ def cmd_train_multi(argv) -> int:
     return 0
 
 
-# the JAX package's other subcommands, by the ROADMAP item that ports them
-NOT_PORTED = {
-    "eval": 9, "export": 9, "render": 9, "init-pc": 3, "eval-pc": 5,
-    "view": 10,
-}
-_TITLES = {
-    3: "init_pc, backproject, voxel and the native binding",
-    5: "the point-cloud metrics and LPIPS",
-    9: "the remaining CLI subcommands and writer backends",
-    10: "the viewer",
-}
-COMMANDS = {"train": cmd_train, "train-multi": cmd_train_multi}
+def cmd_eval(argv) -> int:
+    """``Trainer.eval_all`` of a checkpoint, printed. The model config is
+    the checkpoint's unless ``--model.*`` flags are given."""
+    from qed_splatter_tpu_torch.engine import checkpoint as ckpt
+    from qed_splatter_tpu_torch.engine.trainer import Trainer
+
+    cfg, device = build_trainer_config(argv)
+    if not cfg.data.data or not cfg.load_dir:
+        print("error: --data and --load-dir are required", file=sys.stderr)
+        return 2
+    if not any(a.startswith("--model.") for a in argv):
+        meta = ckpt.checkpoint_meta(cfg.load_dir)
+        if meta:
+            cfg = dataclasses.replace(
+                cfg, model=ckpt.model_config_from_meta(meta))
+    trainer = Trainer(cfg, device=device)
+    for k, v in trainer.eval_all(int(trainer.state.step)).items():
+        print(f"{k}: {v}")
+    return 0
+
+
+def cmd_init_pc(argv) -> int:
+    from qed_splatter_tpu_torch.data.init_pc import InitPcArgs
+    from qed_splatter_tpu_torch.data.init_pc import main as init_main
+
+    parser = argparse.ArgumentParser(
+        prog="python -m qed_splatter_tpu_torch.cli init-pc",
+        description="Create / colorize an init point cloud from RGB-D")
+    add_dataclass_args(parser, InitPcArgs)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device for backprojection and colorize")
+    ns = parser.parse_args(argv)
+    args = apply_overrides(InitPcArgs(), ns)
+    if not args.data:
+        print("error: --data PATH is required", file=sys.stderr)
+        return 2
+    init_main(args, device=ns.device)
+    return 0
+
+
+def add_crop_args(parser) -> None:
+    """Crop-box flags: an oriented box in scene space (the model's
+    coordinate frame); gaussians outside it are left out."""
+    parser.add_argument("--crop-center", type=float, nargs=3, default=None,
+                        metavar=("X", "Y", "Z"))
+    parser.add_argument("--crop-size", type=float, nargs=3, default=None,
+                        metavar=("SX", "SY", "SZ"))
+    parser.add_argument("--crop-rotation", type=float, nargs=9, default=None,
+                        help="row-major 3x3 box rotation (default identity)")
+
+
+def crop_from_args(ns):
+    """The CropBox of the --crop-* flags; None when no crop is asked for."""
+    if ns.crop_center is None and ns.crop_size is None:
+        return None
+    from qed_splatter_tpu_torch.models.crop import CropBox
+
+    return CropBox(
+        center=tuple(ns.crop_center or (0.0, 0.0, 0.0)),
+        size=tuple(ns.crop_size or (2.0, 2.0, 2.0)),
+        rotation=tuple(ns.crop_rotation) if ns.crop_rotation else None)
+
+
+def _load_state(ns):
+    """The checkpoint state of ``--load-dir`` on ``--device``, or None after
+    printing the error."""
+    from qed_splatter_tpu_torch.engine import checkpoint as ckpt
+
+    try:
+        return ckpt.load_state(ns.load_dir, device=ns.device)
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return None
+
+
+def cmd_export(argv) -> int:
+    from qed_splatter_tpu_torch.engine import checkpoint as ckpt
+
+    parser = argparse.ArgumentParser(
+        prog="python -m qed_splatter_tpu_torch.cli export")
+    parser.add_argument("--load-dir", required=True)
+    parser.add_argument("--output", default="splat.ply")
+    parser.add_argument("--pointcloud", action="store_true",
+                        help="write plain xyz/rgb instead of the 3DGS layout")
+    parser.add_argument("--format", choices=["ply", "splat"], default=None,
+                        help="output format (default: from --output's "
+                             "suffix; .splat = the packed 32-byte web-viewer "
+                             "layout)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to load the checkpoint on")
+    add_crop_args(parser)
+    ns = parser.parse_args(argv)
+    state = _load_state(ns)
+    if state is None:
+        return 2
+    meta = ckpt.checkpoint_meta(ns.load_dir)
+    params = state.params
+    crop = crop_from_args(ns)
+    if crop is not None:
+        params = params.replace(alive=params.alive & crop.within(params.means))
+    fmt = ns.format or ("splat" if ns.output.endswith(".splat") else "ply")
+    if ns.pointcloud:
+        n = ckpt.export_pointcloud_ply(ns.output, params, meta)
+    elif fmt == "splat":
+        n = ckpt.export_splat(ns.output, params, meta)
+    else:
+        n = ckpt.export_ply(ns.output, params, meta)
+    print(f"Wrote {n} gaussians to {ns.output}")
+    return 0
+
+
+def render_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="python -m qed_splatter_tpu_torch.cli render")
+    parser.add_argument("--load-dir", required=True)
+    parser.add_argument("--output-dir", default="renders")
+    parser.add_argument("--mode", choices=["orbit", "eval", "path"],
+                        default=None,
+                        help="default: 'path' when --camera-path is given, "
+                             "else 'orbit'")
+    parser.add_argument("--data", default=None,
+                        help="dataset (required for --mode eval)")
+    parser.add_argument("--camera-path", default=None,
+                        help="nerfstudio camera-path JSON "
+                             "(required for --mode path)")
+    parser.add_argument("--num-frames", type=int, default=60)
+    parser.add_argument("--width", type=int, default=960)
+    parser.add_argument("--height", type=int, default=540)
+    parser.add_argument("--radius", type=float, default=3.0)
+    parser.add_argument("--elevation", type=float, default=0.2)
+    parser.add_argument("--depth", action="store_true",
+                        help="also write normalized depth images")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to render on")
+    add_crop_args(parser)
+    return parser
+
+
+def render_cameras(ns, params) -> list:
+    """The (c2w, K, width, height) of each frame ``render`` writes, for
+    parsed render flags (``ns.mode`` set) and the checkpoint's params."""
+    import numpy as np
+
+    from qed_splatter_tpu_torch.testing import orbit_c2w_opengl
+
+    if ns.mode == "eval":
+        from qed_splatter_tpu_torch.configs import DataConfig
+        from qed_splatter_tpu_torch.data.transforms_json import \
+            parse_transforms
+
+        scene = parse_transforms(DataConfig(data=ns.data))
+        return [(c.c2w, c.intrinsics_matrix(), c.width, c.height)
+                for c in (scene.frames[int(i)].camera
+                          for i in scene.eval_indices)]
+    if ns.mode == "path":
+        from qed_splatter_tpu_torch.data.camera_path import load_camera_path
+
+        return load_camera_path(ns.camera_path, default_width=ns.width,
+                                default_height=ns.height)
+    # an orbit around the centre of the alive gaussians
+    means = params.means.cpu().numpy()[params.alive.cpu().numpy()]
+    target = tuple(means.mean(0)) if len(means) else (0.0, 0.0, 0.0)
+    f = 0.8 * max(ns.width, ns.height)
+    K = np.array([[f, 0, ns.width / 2], [0, f, ns.height / 2], [0, 0, 1]],
+                 np.float32)
+    return [(orbit_c2w_opengl(ns.radius, 2 * np.pi * i / ns.num_frames,
+                              ns.elevation, target), K, ns.width, ns.height)
+            for i in range(ns.num_frames)]
+
+
+def to_uint8(rgb):
+    """A rendered [H, W, 3] image in [0, 1] as the uint8 the PNG holds."""
+    import numpy as np
+
+    return np.clip(rgb.cpu().numpy() * 255, 0, 255).astype(np.uint8)
+
+
+def cmd_render(argv) -> int:
+    """Render a camera trajectory of a checkpoint to PNG frames: an orbit,
+    the dataset's eval cameras, or a nerfstudio camera path."""
+    import numpy as np
+
+    from qed_splatter_tpu_torch.data.png import write_png
+    from qed_splatter_tpu_torch.engine import checkpoint as ckpt
+    from qed_splatter_tpu_torch.models.splatfacto import render
+
+    ns = render_parser().parse_args(argv)
+    if ns.mode is None:
+        # --camera-path implies path mode: an orbit in place of the user's
+        # authored path would be a trap
+        ns.mode = "path" if ns.camera_path else "orbit"
+    if ns.mode == "eval" and not ns.data:
+        print("error: --data required for --mode eval", file=sys.stderr)
+        return 2
+    if ns.mode == "path" and not ns.camera_path:
+        print("error: --camera-path required for --mode path",
+              file=sys.stderr)
+        return 2
+    state = _load_state(ns)
+    if state is None:
+        return 2
+    cfg = ckpt.model_config_from_meta(ckpt.checkpoint_meta(ns.load_dir))
+    out_dir = Path(ns.output_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cams = render_cameras(ns, state.params)
+    crop = crop_from_args(ns)
+    for i, (c2w, K, w, h) in enumerate(cams):
+        out = render(state.params, c2w, K, w, h, cfg, step=state.step,
+                     train=False, crop_box=crop, device=ns.device)
+        write_png(out_dir / f"frame_{i:05d}.png", to_uint8(out.rgb))
+        if ns.depth:
+            d = out.depth[..., 0].cpu().numpy()
+            dn = (d - d.min()) / max(d.max() - d.min(), 1e-9)
+            write_png(out_dir / f"depth_{i:05d}.png",
+                      (dn * 255).astype(np.uint8))
+        print(f"  frame {i + 1}/{len(cams)}", end="\r", flush=True)
+    print(f"\nWrote {len(cams)} frames to {out_dir}")
+    return 0
+
+
+def cmd_eval_pc(argv) -> int:
+    """Point-cloud accuracy and completeness against a reference scan, on
+    the host geometry core."""
+    from qed_splatter_tpu_torch.data.ply import read_ply
+    from qed_splatter_tpu_torch.metrics import (
+        calculate_accuracy,
+        calculate_completeness,
+    )
+
+    parser = argparse.ArgumentParser(
+        prog="python -m qed_splatter_tpu_torch.cli eval-pc")
+    parser.add_argument("--pred", required=True, help="reconstructed PLY")
+    parser.add_argument("--gt", required=True, help="reference-scan PLY")
+    parser.add_argument("--completeness-threshold", type=float, default=0.05)
+    parser.add_argument("--accuracy-percentile", type=float, default=90.0)
+    ns = parser.parse_args(argv)
+    pred = read_ply(ns.pred).positions
+    gt = read_ply(ns.gt).positions
+    acc = calculate_accuracy(pred, gt, percentile=ns.accuracy_percentile)
+    cmp_ = calculate_completeness(pred, gt,
+                                  threshold=ns.completeness_threshold)
+    print(f"accuracy_p{ns.accuracy_percentile:.0f}: {acc:.6f}")
+    print(f"completeness_{ns.completeness_threshold}: {cmp_:.2f}%")
+    return 0
+
+
+COMMANDS = {"train": cmd_train, "train-multi": cmd_train_multi,
+            "eval": cmd_eval, "init-pc": cmd_init_pc, "export": cmd_export,
+            "render": cmd_render, "eval-pc": cmd_eval_pc}
 
 
 def main(argv: Optional[list] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m qed_splatter_tpu_torch.cli "
-              "{train,train-multi} [flags]")
+              f"{{{','.join(COMMANDS)}}} [flags]")
         return 0 if argv else 2
     cmd = argv[0]
-    if cmd in NOT_PORTED:
-        item = NOT_PORTED[cmd]
-        raise not_ported(f"the '{cmd}' subcommand", item, _TITLES[item])
+    if cmd == "view":
+        raise not_ported("the 'view' subcommand", 10, "the viewer")
     if cmd not in COMMANDS:
-        print(f"unknown command: {cmd}; choose from "
-              f"{[*COMMANDS, *NOT_PORTED]}", file=sys.stderr)
+        print(f"unknown command: {cmd}; choose from {[*COMMANDS, 'view']}",
+              file=sys.stderr)
         return 2
     return COMMANDS[cmd](argv[1:])
 

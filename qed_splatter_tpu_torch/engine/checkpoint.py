@@ -9,8 +9,12 @@ keys: ``step``, ``path``, ``capacity``, ``num_cameras``, ``sh_degree``,
 the bilateral-grid keys, the dataparser transform and scale, the model
 config, and the adaptive tables ``k_by_d`` and ``tpg_by_d``.
 
-:func:`export_ply` writes the alive gaussians as the same 3DGS interchange
-PLY as the JAX package, byte for byte.
+:func:`load_state` restores a run's latest checkpoint for the serving
+tools. :func:`export_ply` writes the alive gaussians as the same 3DGS
+interchange PLY as the JAX package, byte for byte; :func:`export_splat` as
+the 32-byte-per-gaussian ``.splat`` layout of web viewers
+(:func:`pack_splat_buffer`), and :func:`export_pointcloud_ply` as centres and
+dc colours.
 """
 
 from __future__ import annotations
@@ -26,8 +30,13 @@ import torch
 from qed_splatter_tpu_torch import resolve_device
 from qed_splatter_tpu_torch.configs import ModelConfig
 from qed_splatter_tpu_torch.engine.densify import DensifyStats
+from qed_splatter_tpu_torch.data.ply import write_ply
 from qed_splatter_tpu_torch.engine.train_step import TrainState
-from qed_splatter_tpu_torch.models.gaussians import FIELDS, GaussianParams
+from qed_splatter_tpu_torch.models.gaussians import (
+    FIELDS,
+    SH_C0,
+    GaussianParams,
+)
 
 STATE_FILE = "state.pt"
 
@@ -133,6 +142,15 @@ def restore_checkpoint(path, device="cuda") -> TrainState:
     )
 
 
+def load_state(ckpt_dir, device="cuda") -> TrainState:
+    """The latest checkpoint under ``ckpt_dir`` (a run's ``ckpts/`` or one
+    checkpoint directory), on ``device``."""
+    latest = latest_checkpoint(ckpt_dir)
+    if latest is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    return restore_checkpoint(latest, device)
+
+
 def latest_checkpoint(ckpt_dir) -> Optional[Path]:
     """The checkpoint ``latest.json`` names, else the last ``step-*``;
     ``ckpt_dir`` may also be one checkpoint directory itself."""
@@ -193,17 +211,27 @@ def _inverse_transform(means: np.ndarray, scales_log: np.ndarray, meta):
         scales_log - np.log(max(scale, 1e-12))).astype(np.float32)
 
 
+def _alive_rows(params: GaussianParams):
+    """(number alive, a function giving a field's alive rows as numpy)."""
+    idx = torch.nonzero(params.alive.cpu()).reshape(-1).numpy()
+
+    def rows(t):
+        return t.detach().cpu().numpy()[idx]
+    return len(idx), rows
+
+
+def _dc_rgb(dc: np.ndarray) -> np.ndarray:
+    """SH dc band -> RGB clipped to [0, 1] (float32)."""
+    return np.clip(dc * np.float32(SH_C0) + np.float32(0.5), 0.0, 1.0)
+
+
 def export_ply(path, params: GaussianParams, meta=None) -> int:
     """Write the alive gaussians as a 3DGS interchange PLY (positions,
     normals 0, SH features channel-major, opacity logit, log-scales,
     quaternions), readable by standard splat viewers. ``meta``
     (:func:`checkpoint_meta`) enables the inverse dataparser transform.
     Returns the number of gaussians written."""
-    idx = torch.nonzero(params.alive.cpu()).reshape(-1).numpy()
-    n = len(idx)
-
-    def rows(t):
-        return t.detach().cpu().numpy()[idx]
+    n, rows = _alive_rows(params)
 
     means, scales = _inverse_transform(rows(params.means),
                                        rows(params.scales), meta)
@@ -239,3 +267,52 @@ def export_ply(path, params: GaussianParams, meta=None) -> int:
         f.write(header.encode("ascii"))
         f.write(rec.tobytes())
     return n
+
+
+def export_pointcloud_ply(path, params: GaussianParams, meta=None) -> int:
+    """Write the alive gaussians' centres and dc colours as a plain xyz/rgb
+    PLY (for the point-cloud metrics); returns the number written."""
+    n, rows = _alive_rows(params)
+    means, _ = _inverse_transform(rows(params.means),
+                                  np.zeros((n, 3), np.float32), meta)
+    write_ply(path, means, _dc_rgb(rows(params.features_dc)))
+    return n
+
+
+def pack_splat_buffer(params: GaussianParams, meta=None) -> bytes:
+    """The alive gaussians as the 32-byte-per-splat buffer of web splat
+    viewers: position f32x3, world scale f32x3 (exp of the log-scale),
+    colour rgba u8x4 (SH dc -> rgb, sigmoid opacity), rotation u8x4 (the
+    normalized wxyz quaternion as c * 128 + 128). Splats are ordered by
+    descending volume x opacity, so a truncated prefix still previews the
+    large structure first."""
+    n, rows = _alive_rows(params)
+    means, scales_log = _inverse_transform(
+        rows(params.means).astype(np.float32),
+        rows(params.scales).astype(np.float32), meta)
+    scales = np.exp(scales_log)
+    rgb = _dc_rgb(rows(params.features_dc))
+    opac = 1.0 / (1.0 + np.exp(-rows(params.opacities).astype(np.float32)))
+    quats = rows(params.quats).astype(np.float32)
+    quats = quats / np.maximum(
+        np.linalg.norm(quats, axis=-1, keepdims=True), 1e-12)
+    order = np.argsort(
+        -(scales[:, 0] * scales[:, 1] * scales[:, 2] * opac), kind="stable")
+    rec = np.zeros(n, dtype=np.dtype([("pos", "<f4", 3), ("scale", "<f4", 3),
+                                      ("rgba", "u1", 4), ("rot", "u1", 4)]))
+    rec["pos"] = means[order]
+    rec["scale"] = scales[order]
+    rec["rgba"][:, :3] = np.clip(rgb[order] * 255.0 + 0.5, 0, 255)
+    rec["rgba"][:, 3] = np.clip(opac[order] * 255.0 + 0.5, 0, 255)
+    rec["rot"] = np.clip(quats[order] * 128.0 + 128.0, 0, 255)
+    return rec.tobytes()
+
+
+def export_splat(path, params: GaussianParams, meta=None) -> int:
+    """Write the alive gaussians as a ``.splat`` file (the layout of
+    :func:`pack_splat_buffer`); returns the number written."""
+    buf = pack_splat_buffer(params, meta)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(buf)
+    return len(buf) // 32

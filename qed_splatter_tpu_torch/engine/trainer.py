@@ -53,10 +53,12 @@ pre-growth state and rollback target is a copy. Random draws come from
 ``torch.Generator``\\ s seeded from (seed, step); the camera order is the
 datamanager's.
 
-Not ported, each refused with :class:`NotImplementedError` naming its
-ROADMAP item: more than one data or model shard, the viewer, the
-TensorBoard / wandb / comet writers and the bilateral grid. ``TrainerConfig.mixed_precision`` turns on the
-model's (the bf16 operand compositing kernels), as in the JAX trainer.
+``vis`` set to ``tensorboard``, ``wandb`` or ``comet`` adds that writer
+(``engine/writer.py``). Not ported, each refused with
+:class:`NotImplementedError` naming its ROADMAP item: more than one data or
+model shard, the viewer and the bilateral grid.
+``TrainerConfig.mixed_precision`` turns on the model's (the bf16 operand
+compositing kernels), as in the JAX trainer.
 """
 
 from __future__ import annotations
@@ -147,11 +149,6 @@ def _refuse_unported(config: TrainerConfig) -> None:
                          "parallel/*")
     if config.vis == "viewer":
         raise not_ported("vis='viewer'", 10, "the viewer")
-    if config.vis in ("tensorboard", "wandb", "comet"):
-        raise not_ported(
-            f"the {config.vis} metrics backend (of tensorboard, wandb and "
-            f"comet; the port writes JSONL and the console)", 9,
-            "the remaining CLI subcommands and writer backends")
     if config.model.use_bilateral_grid:
         raise refuse_bilateral_grid()
 
@@ -172,8 +169,10 @@ class Trainer:
         self.optims = optims or GroupOptimizers(config.optimizers)
         self.run_dir = (Path(config.output_dir)
                         / (config.experiment_name or "qed-splatter"))
-        self.writer = MetricsWriter(self.run_dir,
-                                    console_every=config.log_every)
+        self.writer = MetricsWriter(
+            self.run_dir, console_every=config.log_every,
+            use_tensorboard=config.vis == "tensorboard",
+            use_wandb=config.vis == "wandb", use_comet=config.vis == "comet")
         self.rgb_metrics = RGBMetrics()
         self._step_fns: Dict[Tuple, object] = {}
         # device batches by (camera, downscale), while they fit the budget

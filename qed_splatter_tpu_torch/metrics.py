@@ -1,24 +1,29 @@
-"""Quality metrics: RGB (PSNR / SSIM / LPIPS) and depth (port of
-``metrics.py``).
+"""Quality metrics: RGB (PSNR / SSIM / LPIPS), depth and point clouds (port
+of ``metrics.py``).
 
 - :class:`RGBMetrics`: PSNR with data range 1, SSIM with an 11-tap window,
-  LPIPS; uint8 inputs are normalized to [0, 1] first. LPIPS needs
-  pretrained weights that are not shipped: it is NaN, as in the JAX
-  package without a weights file (the LPIPS network is not ported).
+  LPIPS (``ops/lpips.py``); uint8 inputs are normalized to [0, 1] first.
+  LPIPS needs pretrained weights that are not shipped: they come from an
+  ``.npz`` (``lpips_weights`` or ``QED_LPIPS_WEIGHTS``), and without one
+  ``rgb_lpips`` is NaN, as in the JAX package.
 - :func:`depth_metrics`: (abs_rel, sq_rel, rmse, rmse_log, a1, a2, a3) over
   the finite pixels with gt > 0.1; NaN when no pixel is valid.
 - :func:`full_eval_metrics` (the eval row's keys) and :func:`avg_min_scale`.
-
-The point-cloud metrics (accuracy, completeness) are not ported; they wait
-with LPIPS (ROADMAP.md, 'Next, in order' item 5).
+- :class:`PDMetrics`: point-cloud accuracy (the 90th percentile of the
+  distances from the reconstruction to the reference) and completeness (the
+  percentage of reference points within 0.05 of the reconstruction), the
+  distances from the host core (``native.py``); :func:`mean_angular_error`.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from qed_splatter_tpu_torch import native
 from qed_splatter_tpu_torch.ops.ssim import ssim as ssim_fn
 
 
@@ -38,14 +43,28 @@ def psnr(pred: torch.Tensor, target: torch.Tensor,
 
 class RGBMetrics:
     """(PSNR, SSIM, LPIPS) of [H, W, 3] images (float [0, 1] or uint8);
-    LPIPS is NaN (no weights)."""
+    LPIPS is NaN without a weights file."""
+
+    def __init__(self, lpips_weights: Optional[str] = None):
+        self._lpips = None
+        path = lpips_weights or os.environ.get("QED_LPIPS_WEIGHTS")
+        if path and os.path.exists(path):
+            from qed_splatter_tpu_torch.ops.lpips import LPIPS
+
+            self._lpips = LPIPS.from_npz(path)
+
+    @property
+    def has_lpips(self) -> bool:
+        return self._lpips is not None
 
     def __call__(self, pred: torch.Tensor, target: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         p = to_float_image(pred)
         t = to_float_image(target).to(p.device)
+        lp = (self._lpips(p, t) if self._lpips is not None
+              else torch.tensor(float("nan")))
         return (psnr(p, t), ssim_fn(p, t, kernel_size=11, data_range=1.0),
-                torch.tensor(float("nan")))
+                lp)
 
 
 class DepthMetricValues(NamedTuple):
@@ -90,6 +109,44 @@ def depth_metrics(pred: torch.Tensor, gt: torch.Tensor,
     empty = n == 0
     return DepthMetricValues(*[torch.where(empty, nan, v) for v in (
         abs_rel, sq_rel, rmse, rmse_log, a1, a2, a3)])
+
+
+def _nn_dist(queries: np.ndarray, refs: np.ndarray) -> np.ndarray:
+    """Nearest-neighbour distances from the host core."""
+    return native.nn_distances_native(np.asarray(queries, np.float32),
+                                      np.asarray(refs, np.float32))
+
+
+def calculate_accuracy(reconstructed: np.ndarray, reference: np.ndarray,
+                       percentile: float = 90.0) -> float:
+    """The ``percentile`` of the distances from each reconstructed point to
+    the reference."""
+    return float(np.percentile(_nn_dist(reconstructed, reference),
+                               percentile))
+
+
+def calculate_completeness(reconstructed: np.ndarray, reference: np.ndarray,
+                           threshold: float = 0.05) -> float:
+    """Percentage of reference points within ``threshold`` of the
+    reconstruction."""
+    d = _nn_dist(reference, reconstructed)
+    return float(np.sum(d < threshold) / len(d) * 100.0)
+
+
+class PDMetrics:
+    """(accuracy, completeness) of a reconstructed point cloud against a
+    reference scan."""
+
+    def __call__(self, pred_points: np.ndarray, gt_points: np.ndarray
+                 ) -> Tuple[float, float]:
+        return (calculate_accuracy(pred_points, gt_points),
+                calculate_completeness(pred_points, gt_points))
+
+
+def mean_angular_error(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """Per-row angle between two sets of unit vectors [B, C]."""
+    dots = torch.clamp((gt * pred).sum(1), -1.0, 1.0)
+    return torch.arccos(dots)
 
 
 def full_eval_metrics(

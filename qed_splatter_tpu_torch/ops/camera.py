@@ -2,7 +2,9 @@
 
 Port of ``qed_splatter_tpu.ops.camera``: ``get_viewmat`` flips the local y/z
 axes of an OpenGL camera-to-world pose and takes the analytic rigid inverse,
-giving the rasterizer's OpenCV world-to-camera (+z forward).
+giving the rasterizer's OpenCV world-to-camera (+z forward);
+``opengl_c2w_to_opencv_w2c`` is the same flip on a numpy 4x4 pose, for the
+init-pointcloud tool.
 """
 
 from __future__ import annotations
@@ -31,6 +33,14 @@ def get_viewmat(c2w: torch.Tensor) -> torch.Tensor:
     bottom[3:].fill_(1.0)
     bottom = bottom.expand(top.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)
+
+
+def opengl_c2w_to_opencv_w2c(c2w_opengl: np.ndarray) -> np.ndarray:
+    """OpenGL camera-to-world [4, 4] -> OpenCV world-to-camera [4, 4]
+    (numpy, inverted in float64, returned as float32)."""
+    c2w = np.array(c2w_opengl, dtype=np.float64, copy=True)
+    c2w[:3, 1:3] *= -1.0
+    return np.linalg.inv(c2w).astype(np.float32)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -797,3 +797,86 @@ def test_host_sync_in_the_body_makes_capture_raise(gen, tmp_path):
         runner.step.run = real
     assert runner._graph is None and runner.replays == 0
     torch.cuda.synchronize()
+
+
+def test_init_pc_and_render_on_the_card(gen, tmp_path):
+    """``init-pc`` (backprojection and colorize on the card, the host core
+    between) and ``render`` in each mode, through the CLI on CUDA: the
+    cloud and colours match the CPU run's (99% of the points within 1e-4,
+    their colours within one level), every render frame equals
+    ``render(train=False)`` and launched the kernels."""
+    import json
+
+    from qed_splatter_tpu_torch import cli
+    from qed_splatter_tpu_torch.data import png
+    from qed_splatter_tpu_torch.data.ply import read_ply
+    from qed_splatter_tpu_torch.engine import checkpoint as ckpt
+    from qed_splatter_tpu_torch.models.splatfacto import render
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+    from qed_splatter_tpu_torch.ops import tiles
+    from qed_splatter_tpu_torch.testing import (
+        orbit_c2w_opengl,
+        write_room_dataset,
+    )
+
+    root = tmp_path / "room"
+    write_room_dataset(root, num_frames=6, width=256, height=168,
+                       sparse_ply=3000, workers=4)
+    clouds = {}
+    for dev in ("cpu", "cuda"):
+        assert cli.main(["init-pc", "--data", str(root), "--device", dev,
+                         "--cache-dir", str(tmp_path / f"cache_{dev}"),
+                         "--output-name", f"{dev}.ply",
+                         "--no-update-transforms"]) == 0
+        assert cli.main(["init-pc", "--data", str(root), "--device", dev,
+                         "--colorize", "--input-name", f"{dev}.ply",
+                         "--output-name", f"{dev}_c.ply",
+                         "--no-update-transforms"]) == 0
+        clouds[dev] = read_ply(root / f"{dev}_c.ply")
+    # an ulp of the card's backprojection can move a point across a voxel
+    # boundary: the clouds are matched point to point, not compared in order
+    from scipy.spatial import cKDTree
+
+    a, b = clouds["cuda"], clouds["cpu"]
+    assert len(b) > 1000 and abs(len(a) - len(b)) <= 1e-3 * len(b)
+    d, idx = cKDTree(b.positions).query(a.positions)
+    same = d <= 1e-4
+    assert same.mean() >= 0.99 and d.max() <= 0.05
+    assert np.abs(a.colors[same].astype(int)
+                  - b.colors[idx[same]].astype(int)).max() <= 1
+    assert json.loads((root / "transforms.json").read_text())[
+        "ply_file_path"] == "sparse_pc.ply"
+
+    assert cli.main(["train", "--data", str(root), "--output-dir",
+                     str(tmp_path / "out"), "--max-num-iterations", "20",
+                     "--steps-per-eval-image", "0",
+                     "--steps-per-eval-all-images", "0",
+                     "--model.num-downscales", "0"]) == 0
+    ck = tmp_path / "out" / "qed-splatter" / "ckpts"
+    path = tmp_path / "cam.json"
+    path.write_text(json.dumps({"render_width": 200, "render_height": 120,
+                                "camera_path": [{
+                                    "camera_to_world": orbit_c2w_opengl(
+                                        1.5, a, 0.1).reshape(-1).tolist(),
+                                    "fov": 70.0} for a in (0.0, 0.5)]}))
+    state = ckpt.load_state(ck)
+    cfg = ckpt.model_config_from_meta(ckpt.checkpoint_meta(ck))
+    for name, extra in (
+            ("orbit", ["--mode", "orbit", "--num-frames", "2", "--depth"]),
+            ("eval", ["--mode", "eval", "--data", str(root)]),
+            ("path", ["--camera-path", str(path)])):
+        out = tmp_path / f"render_{name}"
+        argv = ["--load-dir", str(ck), "--output-dir", str(out), *extra]
+        rp.COMPOSITE.reset()
+        tiles.SLAB_GATHER.reset()
+        assert cli.main(["render", *argv]) == 0
+        ns = cli.render_parser().parse_args(argv)
+        ns.mode = ns.mode or "path"
+        cams = cli.render_cameras(ns, state.params)
+        assert rp.COMPOSITE.launches >= len(cams)
+        assert tiles.SLAB_GATHER.launches >= len(cams)
+        for i, (c2w, K, w, h) in enumerate(cams):
+            want = cli.to_uint8(render(state.params, c2w, K, w, h, cfg,
+                                       step=state.step, train=False).rgb)
+            assert np.array_equal(png.read_png(out / f"frame_{i:05d}.png"),
+                                  want)

@@ -58,6 +58,46 @@ def test_hygiene_covers_the_bench_path():
             "ops/copy_rows.py"} <= names
 
 
+def test_hygiene_covers_the_serving_path():
+    names = {str(p.relative_to(ROOT / "qed_splatter_tpu_torch"))
+             for p in PORT_FILES[:-1]}
+    assert {"native.py", "ops/voxel.py", "ops/backproject.py",
+            "ops/lpips.py", "ops/knn.py", "ops/camera.py",
+            "data/init_pc.py", "data/camera_path.py", "engine/writer.py",
+            "engine/checkpoint.py", "metrics.py", "cli.py"} <= names
+
+
+def test_native_raises_without_a_compiler(monkeypatch, tmp_path):
+    """No g++ and no build: the host core raises, naming the compiler; it
+    hands no work to a plain version."""
+    from qed_splatter_tpu_torch import native
+
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    pts = np.zeros((4, 3), np.float32)
+    for call in (lambda: native.voxel_downsample_native(pts, 0.1),
+                 lambda: native.nn_distances_native(pts, pts),
+                 lambda: native.backproject_native(
+                     np.ones((2, 2), np.float32), np.eye(3), np.eye(4), 5.0)):
+        with pytest.raises(native.NativeBuildError, match="g..? not found"):
+            call()
+    assert not (tmp_path / "build").exists()
+
+
+def test_native_build_failure_names_the_command(monkeypatch, tmp_path):
+    from qed_splatter_tpu_torch import native
+
+    bad = tmp_path / "bad.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SOURCE", bad)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_LIB", None)
+    with pytest.raises(native.NativeBuildError, match="bad.cpp"):
+        native.load()
+    assert not list((tmp_path / "build").glob("*.so"))
+
+
 def test_port_has_its_kernel_sources():
     srcs = sorted(p.name for p in (ROOT / "qed_splatter_tpu_torch" / "csrc")
                   .glob("*.cu"))
