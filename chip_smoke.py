@@ -106,6 +106,34 @@ pipeline. the tools a user runs before and after training, through
    and the CLI's launches of the compositing forward and the gather as a
    ``kernels`` row; ``export`` as .ply, .splat, point cloud and a cropped
    .ply, each read back and counted.
+codec. the host core's image decoding: a room frame written with every row
+   Paeth and every row Average, decoded by the core and by the plain row
+   loops (equal, both timed; the all-Paeth frame must take under 0.1 s),
+   and the committed baseline JPEG (``tests/data/room_1296x840_q90.jpg``).
+bilateral. the room at 1296x840 with ``use_bilateral_grid``: 200 steps on
+   the graph path with and without the grid (ms per step of each), then
+   from the trained state a chunk of 10 steps as a CUDA graph against the
+   per-step loop (losses within max(1e-4, twice two eager runs' spread),
+   grids within max(1e-5, the same)), the grids off identity, ``tv_loss``
+   in every train row, and the checkpoint's grids and moments bit-equal.
+viewer. the room trained 60 steps with ``vis="viewer"`` on the graph path
+   while a client thread renders once during the capture (the render waits
+   for the capture lock), pauses (the step stands still across a wait while
+   five full-size renders, ``/status``, ``/splats`` and ``/campath`` are
+   answered) and resumes; then a replayed chunk against the per-step loop
+   under concurrent renders, the launches of one render, the render and
+   PNG-encode ms, and ``cli view`` on the run's checkpoint answering a
+   render.
+forest. BASELINE config #4: the forest (``testing.write_forest_dataset``,
+   960x540, 40 frames) trained 3000 steps by ``cli train --supervise`` with
+   ``tools/run_config4_r5.sh``'s flags in a child process: every loss
+   finite, rc 0, eval PSNR at 3000 at least 3 dB above the seed state's
+   and depth abs_rel lower; the final K, the last ``tile_overflow`` against
+   the escalator's threshold 0.10 T K, refine and growth ms, the journal,
+   and the child's kernel launches (``kernel_launches.json``); then on the
+   final checkpoint the compositing forward and the gather held on an eval
+   frame, and one step's gradients and the backward kernel on a training
+   frame, against their plain versions.
 
 Each render or train phase resets the kernels' launch counts, drives the
 path, and fails unless every kernel of the path launched at least once per
@@ -124,7 +152,8 @@ weight, is counted and masked out of both.
 
 Prints the bench line, the tools' times, ``render_ms_per_frame`` /
 ``train_ms_per_step`` / ``bench`` / ``trainer`` / ``dispatch`` /
-``pipeline`` and ``kernels`` JSON lines,
+``pipeline`` / ``codec`` / ``bilateral`` / ``viewer`` / ``forest`` and
+``kernels`` JSON lines, each phase's wall time,
 the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. The gather's row in ``kernels`` is its
 rank mode, the one the main path launches; the gather mode's numbers are
@@ -1342,6 +1371,69 @@ def hold_grads(cfg, optims, width, height, at, a, batch, seed_bg, what, bar,
     return by_kind
 
 
+def bwd_entry(cap, cap_f, label, launches):
+    """The ``kernels`` row of the compositing backward on one step's own
+    inputs (``cap`` recorded ``composite_tiles_bwd``, ``cap_f`` the
+    forward): the forward's handoff held bit-equal to the plain version, the
+    kernel held against its plain version, both timed beside the bound."""
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    args = cap.args
+    slabs, gout, gacc = args[:4], args[4], args[5]
+    ntx, ts, k_chunk, runs, counts, t_last, cut = args[6:13]
+    check(counts is not None and counts.data_ptr()
+          == cap_f.kwargs["tile_counts"].data_ptr(),
+          "the step's backward was given the tile counts")
+    t, d, k = slabs[2].shape
+    # the handoff: what the step's forward gave its backward is what the
+    # plain version carries over the slots the tile ran, bit for bit
+    check(t_last is not None and cut is not None,
+          "the step's forward handed its backward t_last and cut")
+    with torch.no_grad():           # the step's own slabs require grad
+        want_last, want_cut = rp.transmittance_tail_ref(
+            slabs[0], slabs[1], slabs[3], ntx, ts,
+            rp.slots_run(t, k, k_chunk, runs, counts, "cuda"))
+    check(torch.equal(t_last, want_last) and torch.equal(cut, want_cut),
+          "the step's t_last and cut equal the plain version bit for bit")
+    del want_last, want_cut
+    kern = rp.composite_tiles_bwd(*args)
+    ref = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, ntx, ts,
+                                     k_chunk=k_chunk, chunks_run=runs)
+    err = check_bwd(kern, ref, runs, k_chunk,
+                    f"composite_bwd on the step's slabs (T={t}, K={k})",
+                    counts)
+    del kern, ref
+    ms = cuda_ms(lambda: rp.composite_tiles_bwd(*args), 20)
+    # what the handoff costs the forward: the step's forward with and
+    # without it, on the step's own slabs
+    with torch.no_grad():
+        ms_fwd = {tail: graph_ms(lambda: rp.composite_tiles_fwd(
+            *slabs, ntx, ts, counts, k_chunk, None, tail), 20)
+            for tail in (False, True)}
+    plain_ms = cuda_ms(lambda: rp.composite_tiles_bwd_ref(
+        *slabs, gout, gacc, ntx, ts, k_chunk=k_chunk, chunks_run=runs), 1)
+    in_bytes = (sum(x.numel() for x in slabs) + gout.numel() + gacc.numel()
+                + runs.numel() + counts.numel() + t_last.numel()
+                + cut.numel()) * 4
+    out_bytes = sum(x.numel() for x in slabs) * 4
+    ops = 256 * needed_slots(counts, runs, k, k_chunk) * bwd_ops_per_pair(d)
+    bound_b = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
+    bound_o = ops / PEAK_F32_PER_S * 1e3
+    skipped = int((runs < -(-k // (k_chunk or k))).sum())
+    print(f"  composite_bwd {ms:.4f} ms (plain {plain_ms:.3f} ms), bound "
+          f"{max(bound_b, bound_o):.4f} ms ({bound_o:.4f} by operations, "
+          f"{bound_b:.4f} by bytes), {ms / max(bound_b, bound_o):.2f}x its "
+          f"bound; tiles with a skipped chunk {skipped} of {t}")
+    print(f"  composite on the step's slabs: {ms_fwd[True]:.4f} ms with the "
+          f"handoff to the backward, {ms_fwd[False]:.4f} ms without")
+
+    row = entry("composite_bwd", label, launches, err, ms, plain_ms, None,
+                bound_b, bound_o)
+    row["forward_ms_with_handoff"] = ms_fwd[True]
+    row["forward_ms_without_handoff"] = ms_fwd[False]
+    return row
+
+
 def phase_train(label, n_alive, capacity, k_cap, n_warm, n_timed, seed,
                 compare_plain, profile_dir):
     from qed_splatter_tpu_torch.configs import ModelConfig, \
@@ -1434,54 +1526,8 @@ def phase_train(label, n_alive, capacity, k_cap, n_warm, n_timed, seed,
             FRESH_TOL)
         del fresh
 
-    args = cap.args
-    slabs, gout, gacc = args[:4], args[4], args[5]
-    ntx, ts, k_chunk, runs, counts, t_last, cut = args[6:13]
-    check(counts is not None and counts.data_ptr()
-          == cap_f.kwargs["tile_counts"].data_ptr(),
-          "the step's backward was given the tile counts")
-    t, d, k = slabs[2].shape
-    # the handoff: what the step's forward gave its backward is what the
-    # plain version carries over the slots the tile ran, bit for bit
-    check(t_last is not None and cut is not None,
-          "the step's forward handed its backward t_last and cut")
-    with torch.no_grad():           # the step's own slabs require grad
-        want_last, want_cut = rp.transmittance_tail_ref(
-            slabs[0], slabs[1], slabs[3], ntx, ts,
-            rp.slots_run(t, k, k_chunk, runs, counts, "cuda"))
-    check(torch.equal(t_last, want_last) and torch.equal(cut, want_cut),
-          "the step's t_last and cut equal the plain version bit for bit")
-    del want_last, want_cut
-    kern = rp.composite_tiles_bwd(*args)
-    ref = rp.composite_tiles_bwd_ref(*slabs, gout, gacc, ntx, ts,
-                                     k_chunk=k_chunk, chunks_run=runs)
-    err = check_bwd(kern, ref, runs, k_chunk,
-                    f"composite_bwd on the step's slabs (T={t}, K={k})",
-                    counts)
-    del kern, ref
-    ms = cuda_ms(lambda: rp.composite_tiles_bwd(*args), 20)
-    # what the handoff costs the forward: the step's forward with and
-    # without it, on the step's own slabs
-    with torch.no_grad():
-        ms_fwd = {tail: graph_ms(lambda: rp.composite_tiles_fwd(
-            *slabs, ntx, ts, counts, k_chunk, None, tail), 20)
-            for tail in (False, True)}
-    plain_ms = cuda_ms(lambda: rp.composite_tiles_bwd_ref(
-        *slabs, gout, gacc, ntx, ts, k_chunk=k_chunk, chunks_run=runs), 1)
-    in_bytes = (sum(x.numel() for x in slabs) + gout.numel() + gacc.numel()
-                + runs.numel() + counts.numel() + t_last.numel()
-                + cut.numel()) * 4
-    out_bytes = sum(x.numel() for x in slabs) * 4
-    ops = 256 * needed_slots(counts, runs, k, k_chunk) * bwd_ops_per_pair(d)
-    bound_b = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
-    bound_o = ops / PEAK_F32_PER_S * 1e3
-    skipped = int((runs < -(-k // (k_chunk or k))).sum())
-    print(f"  composite_bwd {ms:.4f} ms (plain {plain_ms:.3f} ms), bound "
-          f"{max(bound_b, bound_o):.4f} ms ({bound_o:.4f} by operations, "
-          f"{bound_b:.4f} by bytes), {ms / max(bound_b, bound_o):.2f}x its "
-          f"bound; tiles with a skipped chunk {skipped} of {t}")
-    print(f"  composite on the step's slabs: {ms_fwd[True]:.4f} ms with the "
-          f"handoff to the backward, {ms_fwd[False]:.4f} ms without")
+    entries = [bwd_entry(cap, cap_f, f"train {label}, K={k_cap}",
+                         launches["composite_bwd"])]
 
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile
@@ -1506,12 +1552,7 @@ def phase_train(label, n_alive, capacity, k_cap, n_warm, n_timed, seed,
               f"ms wall under the profiler (idle share "
               f"{1 - busy_ms / wall_ms:.3f})")
 
-    entries = [entry("composite_bwd", f"train {label}, K={k_cap}",
-                     launches["composite_bwd"], err, ms, plain_ms, None,
-                     bound_b, bound_o)]
-    entries[0]["forward_ms_with_handoff"] = ms_fwd[True]
-    entries[0]["forward_ms_without_handoff"] = ms_fwd[False]
-    del state, got, params, args, slabs, gout, gacc, t_last, cut
+    del state, got, params, cap, cap_f
     torch.cuda.empty_cache()
     return entries, step_ms
 
@@ -3071,6 +3112,607 @@ def phase_pipeline(seed, root, run_dir, work):
     return entries, out
 
 
+# ------------------------------------------------------------ codec phase
+
+JPEG_FIXTURE = "tests/data/room_1296x840_q90.jpg"
+
+
+def phase_codec(root):
+    """The host core's image decoding at a dataset frame's size: a room frame
+    (1296x840 RGB) written with every row Paeth and every row Average, the
+    core against the plain row loops (equal samples, both timed), and the
+    committed baseline JPEG (``tools/torch_jpeg_fixture.py``; the CPU tests
+    hold it to PIL) through the core."""
+    from qed_splatter_tpu_torch import native
+    from qed_splatter_tpu_torch.data import png
+    from qed_splatter_tpu_torch.data.image import decode_image
+
+    print("phase codec: PNG unfiltering and JPEG decode in the host core",
+          flush=True)
+    t_phase = time.perf_counter()
+    native.load()                   # the g++ build, once, outside the clock
+    img = png.read_png(root / "images" / "frame_0000.png")
+    out = {}
+    for name, ftype in (("paeth", 4), ("average", 3)):
+        data = png.encode_png(img, filter_type=ftype)
+        core_s = min(host_ms(lambda: png.decode_png(data), 3) for _ in
+                     range(2)) / 1e3
+        got = png.decode_png(data)
+        # the plain version: the same file with the core's unfilter replaced
+        import zlib
+        idat = b"".join(c for k, c in png._chunks(data, "x") if k == b"IDAT")
+        raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+        t0 = time.perf_counter()
+        plain = png.unfilter_plain(raw, img.shape[0], img.shape[1] * 3, 3)
+        plain_s = time.perf_counter() - t0
+        check(np.array_equal(got, img) and np.array_equal(
+            plain.reshape(img.shape), img), f"all-{name} frame decodes to "
+            "its samples on both paths")
+        print(f"  {img.shape[1]}x{img.shape[0]} RGB, every row {name}: "
+              f"decode_png {core_s:.4f} s (the core), the plain row loops "
+              f"{plain_s:.3f} s")
+        out[f"png_{name}_s"] = core_s
+        out[f"png_{name}_plain_s"] = plain_s
+    check(out["png_paeth_s"] < 0.1, "an all-Paeth 1296x840 frame decodes in "
+          "under 0.1 s")
+    data = Path(JPEG_FIXTURE).read_bytes()
+    jpeg_s = min(host_ms(lambda: decode_image(data), 3)
+                 for _ in range(2)) / 1e3
+    got = decode_image(data)
+    check(got.shape == (840, 1296, 3) and got.dtype == np.uint8,
+          "the JPEG fixture decodes to 840x1296x3 uint8")
+    err = float(np.abs(got.astype(np.int16) - img.astype(np.int16)).mean())
+    print(f"  {JPEG_FIXTURE} ({len(data)} bytes, quality 90, 4:2:0): "
+          f"{jpeg_s:.4f} s; mean |JPEG - PNG| {err:.2f} levels")
+    check(err < 4.0, "the JPEG decodes to the frame it encodes")
+    out["jpeg_s"] = jpeg_s
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ----------------------------------------------------------- forest phase
+
+FOREST_W, FOREST_H, FOREST_FRAMES, FOREST_STEPS = 960, 540, 40, 3000
+# tools/run_config4_r5.sh's flags (BASELINE config #4)
+FOREST_FLAGS = ["--max-num-iterations", str(FOREST_STEPS),
+                "--no-data.auto-scale-poses", "--data.center-method", "none",
+                "--data.orientation-method", "none",
+                "--model.random-scale", "100", "--model.num-random", "100000",
+                "--log-every", "100", "--steps-per-eval-image", "200",
+                "--steps-per-eval-all-images", "1500",
+                "--steps-per-save", "1000", "--vis", "jsonl"]
+
+
+def phase_forest(seed, work):
+    """BASELINE config #4 through ``cli train --supervise``: the forest
+    written by the port's writer, trained in a child process on the graph
+    path, then each kernel the run launched held against its plain version
+    on the forest's own inputs from the final checkpoint."""
+    import dataclasses
+
+    from qed_splatter_tpu_torch import cli, testing
+    from qed_splatter_tpu_torch.engine import checkpoint as ckpt
+    from qed_splatter_tpu_torch.engine.journal import AttemptJournal
+    from qed_splatter_tpu_torch.engine.train_step import make_train_step
+    from qed_splatter_tpu_torch.engine.trainer import Trainer
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+
+    print(f"phase forest: BASELINE config #4, {FOREST_W}x{FOREST_H}, "
+          f"{FOREST_FRAMES} frames, {FOREST_STEPS} steps through cli train "
+          f"--supervise (card: {card_state()})", flush=True)
+    t_phase = time.perf_counter()
+    root, out_dir = work / "forest", work / "forest_run"
+    t0 = time.perf_counter()
+    testing.write_forest_dataset(root, num_frames=FOREST_FRAMES,
+                                 width=FOREST_W, height=FOREST_H, seed=0,
+                                 eval_every=8,
+                                 workers=min(8, os.cpu_count() or 1))
+    t_write = time.perf_counter() - t0
+    print(f"  forest written in {t_write:.2f} s")
+    args = ["--data", str(root), "--output-dir", str(out_dir),
+            "--experiment-name", "forest", "--seed", str(seed),
+            *FOREST_FLAGS]
+    # the first eval: the state the run starts from (the same seed), in
+    # this process and another directory
+    cfg, _ = cli.build_trainer_config(args)
+    first_t = Trainer(dataclasses.replace(cfg,
+                                          output_dir=str(work / "forest0")))
+    first = first_t.eval_all(0)
+    n0 = int(first_t.state.params.num_alive())
+    del first_t
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "qed_splatter_tpu_torch.cli", "train", *args,
+         "--supervise", "--max-restarts", "4"],
+        capture_output=True, text=True, timeout=900)
+    t_train = time.perf_counter() - t0
+    (work / "forest_stdout.txt").write_text(res.stdout + res.stderr)
+    if res.returncode:
+        print(res.stdout[-4000:] + res.stderr[-4000:])
+    check(res.returncode == 0, "the forest run exited 0")
+    run = out_dir / "forest"
+    lines = res.stdout.splitlines()
+    k_lines = [x for x in lines if "max_per_tile" in x]
+    sup = [x for x in lines if x.startswith("SUPERVISOR")]
+    trained = [x for x in lines if x.startswith("Trained")]
+    grow_lines = [x for x in lines if x.startswith("Growing gaussian")]
+    print(f"  cli train --supervise: rc {res.returncode} in {t_train:.1f} s; "
+          f"{trained}; supervisor {sup or 'no restart'}")
+    for x in k_lines + grow_lines:
+        print(f"    | {x}")
+    rows = metrics_rows(run, "train")
+    losses = [r["loss"] for r in rows] + [r.get("loss_max", 0.0)
+                                          for r in rows]
+    check(rows and all(math.isfinite(x) for x in losses),
+          f"every loss finite ({len(rows)} train rows, each with its chunk's "
+          "max)")
+    evals = metrics_rows(run, "eval_all")
+    marks = [("first (step 0, the seed state)", first)] + [
+        (f"step {r['step']}", r) for r in evals]
+    for label, e in marks:
+        print(f"  eval_all {label}: psnr {e['rgb_psnr']:.3f}, ssim "
+              f"{e['rgb_ssim']:.4f}, depth abs_rel {e['depth_abs_rel']:.4f},"
+              f" gaussians {e['gaussian_count']}")
+    last = evals[-1]
+    check(last["step"] == FOREST_STEPS, f"eval_all at step {FOREST_STEPS}")
+    check(last["rgb_psnr"] >= first["rgb_psnr"] + 3.0,
+          "eval PSNR at the end at least 3 dB above the first eval")
+    check(last["depth_abs_rel"] < first["depth_abs_rel"],
+          "depth abs_rel fell")
+    # ms per step: each chunk's row carries the iterations per second since
+    # the previous row (its callbacks and, on a new key, its capture in)
+    ips = [r["iters_per_s"] for r in rows if "iters_per_s" in r]
+    ms_chunks = sorted(1e3 / x for x in ips)
+    refines = metrics_rows(run, "refine")
+    grows = metrics_rows(run, "grow")
+    journal = AttemptJournal(run / "attempt_journal.jsonl")
+    recs = journal.records()
+    meta = ckpt.checkpoint_meta(run / "ckpts")
+    k_by_d = {int(d): int(k) for d, k in (meta["k_by_d"] or {}).items()}
+    # the bucket of the run's last steps, with the last train row's counts
+    m = cfg.model
+    d_last = 2 ** max(m.num_downscales
+                      - (FOREST_STEPS - 1) // m.resolution_schedule, 0)
+    w, h = FOREST_W // d_last, FOREST_H // d_last
+    tiles_n = (-(-w // m.tile_size)) * (-(-h // m.tile_size))
+    k_last = k_by_d.get(d_last, m.max_per_tile)
+    bucket = {"d": d_last, "width": w, "height": h, "tiles": tiles_n,
+              "k": k_last, "threshold": 0.10 * tiles_n * k_last,
+              "tile_overflow": rows[-1]["tile_overflow"],
+              "tile_max_count": rows[-1]["tile_max_count"]}
+    launches = json.loads((run / "kernel_launches.json").read_text())
+    print(f"  ms per step (median of {len(ms_chunks)} chunks of 100, "
+          f"callbacks in): {statistics.median(ms_chunks):.3f} (min "
+          f"{ms_chunks[0]:.3f}, max {ms_chunks[-1]:.3f})")
+    print(f"  refines {len(refines)}: ms median "
+          f"{statistics.median([r['ms'] for r in refines]):.2f}, max "
+          f"{max(r['ms'] for r in refines):.2f}; growths "
+          f"{[(r['capacity_before'], r['capacity_after'], round(r['ms'], 2)) for r in grows]}")
+    print(f"  journal records {len(recs)}, crashed {journal.crashed()}; "
+          f"restarts {sum('restart' in x for x in sup)}")
+    b = bucket
+    print(f"  final K per bucket {k_by_d}; the last bucket 1/{b['d']} "
+          f"({b['width']}x{b['height']}, {b['tiles']} tiles): K {b['k']}, "
+          f"last tile_overflow {b['tile_overflow']:.0f}, tile_max_count "
+          f"{b['tile_max_count']:.0f}; the escalator's threshold 0.10 T K = "
+          f"{b['threshold']:.0f} (overflow / threshold "
+          f"{b['tile_overflow'] / b['threshold']:.4f})")
+    print(f"  launches in the run's process {launches}")
+    alive_end = int(last["gaussian_count"])
+    check(recs and not journal.crashed(), "the journal is matched")
+
+    # --- the kernels on the final checkpoint's own inputs
+    comp = launches.get("qed_composite_tiles", {"launches": 0,
+                                                "variants": {}})
+    bwd = launches.get("qed_composite_tiles_bwd", {"launches": 0,
+                                                   "variants": {}})
+    gat = launches.get("qed_slab_gather", {"launches": 0, "variants": {}})
+    check(comp["launches"] > 0 and bwd["launches"] > 0
+          and gat["launches"] > 0, "the run launched composite, "
+          "composite_bwd and slab_gather")
+    chunked = (comp["variants"].get("chunked", 0),
+               bwd["variants"].get("chunked", 0))
+    tr = Trainer(dataclasses.replace(cfg, load_dir=str(run / "ckpts"),
+                                     output_dir=str(work / "forest_check")))
+    k_eval = tr._k_eval(1)
+    item = tr.dm.get_item(int(tr.dm.scene.eval_indices[0]))
+    cam = item["camera"]
+    eval_cfg = dataclasses.replace(tr.cfg, max_per_tile=k_eval)
+    entries = frame_kernel_entries(
+        tr.state.params, cam.c2w, cam.intrinsics_matrix(), cam.width,
+        cam.height, eval_cfg, tr.state.step, f"forest eval frame, K={k_eval}",
+        {"composite": comp["launches"], "slab_gather": gat["launches"]},
+        gat["variants"].get("ranks", 0))
+    d = d_last
+    k_train = tr._k_for(d)
+    item = tr.dm.get_item(int(tr.dm.train_indices[0]))
+    batch, tcam = tr._prepare_batch(item, d)[:2]
+    step_cfg = dataclasses.replace(tr.cfg, max_per_tile=k_train)
+    step = make_train_step(step_cfg, tr.optims, tcam.width, tcam.height,
+                           has_depth=True)
+    seed_bg = seed + 41
+    with Capture(rp, "composite_tiles_bwd") as cap, \
+            Capture(rp, "composite_tiles_chunked") as cap_f:
+        got = step.grads(tr.state, batch, torch.Generator(
+            device="cuda").manual_seed(seed_bg))
+    px = tcam.width * tcam.height
+    kinks = hold_grads(step_cfg, tr.optims, tcam.width, tcam.height,
+                       tr.state, got, batch, seed_bg,
+                       f"on the forest's final state (1/{d}, K={k_train})",
+                       BWD_TOL, max_kinks={
+                           "l1_sign": max(8, px // 10_000), "clamp": 8,
+                           "depth_sign": max(8, px // 10_000),
+                           "alpha_zero": 0})
+    entries.append(bwd_entry(cap, cap_f, f"forest train step 1/{d}, "
+                             f"K={k_train}", bwd["launches"]))
+    past = max(k_by_d.values() or [0]) > rp.K_CHUNK
+    print(f"  chunked launches in the run: composite {chunked[0]}, "
+          f"composite_bwd {chunked[1]}; K "
+          + ("passed" if past else "stayed at or below")
+          + f" {rp.K_CHUNK}: the k_chunk variants were "
+          + ("" if past else "not ") + "exercised by the training")
+    if past:
+        check(min(chunked) > 0, "K passed 1024 and the chunked kernels ran")
+    del tr, step, got, cap, cap_f
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"  forest phase wall time {wall:.2f} s")
+    return entries, {
+        "write_s": t_write, "train_wall_s": t_train, "rc": res.returncode,
+        "eval": {label: {k: e[k] for k in ("rgb_psnr", "rgb_ssim",
+                                            "depth_abs_rel")}
+                 for label, e in marks},
+        "alive_start": n0, "alive_end": alive_end,
+        "ms_per_step_median": statistics.median(ms_chunks),
+        "refine_ms": [r["ms"] for r in refines],
+        "grow": [(r["capacity_before"], r["capacity_after"], r["ms"])
+                 for r in grows],
+        "journal_records": len(recs), "supervisor": sup,
+        "k_by_d": k_by_d, "last_bucket": bucket, "k_lines": k_lines,
+        "launches": launches,
+        "trained_state_kinks": kinks, "wall_s": wall}
+
+
+# -------------------------------------------------------- bilateral phase
+
+BILATERAL_CHUNK, BILATERAL_STEPS = 10, 200
+
+
+def bilateral_config(root, out, seed, grid):
+    from qed_splatter_tpu_torch.configs import DataConfig, ModelConfig, \
+        TrainerConfig
+
+    model = ModelConfig(num_downscales=0, warmup_length=100, refine_every=50,
+                        max_per_tile=256, use_bilateral_grid=grid)
+    return TrainerConfig(max_num_iterations=BILATERAL_STEPS,
+                         steps_per_eval_image=0, steps_per_eval_all_images=0,
+                         steps_per_save=BILATERAL_STEPS, log_every=10,
+                         output_dir=out, data=DataConfig(data=root),
+                         model=model, seed=seed, steps_per_dispatch=0)
+
+
+def phase_bilateral(seed, root, work):
+    """The room at 1296x840 with ``use_bilateral_grid``: 200 steps on the
+    graph path with and without the grid, then from the trained state a
+    chunk of 10 steps as a CUDA graph against the per-step loop (losses and
+    grids), and a checkpoint round trip of the grids."""
+    from qed_splatter_tpu_torch.data.dataset import FullImageDatamanager
+    from qed_splatter_tpu_torch.engine import checkpoint as ckpt
+    from qed_splatter_tpu_torch.engine.scan_runner import make_scan_steps
+    from qed_splatter_tpu_torch.engine.trainer import Trainer
+    from qed_splatter_tpu_torch.models.bilateral_grid import \
+        init_bilateral_grids
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+    from qed_splatter_tpu_torch.ops import tiles
+
+    print(f"phase bilateral: the room at {W}x{H} with use_bilateral_grid "
+          f"(card: {card_state()})", flush=True)
+    t_phase = time.perf_counter()
+    out = {}
+    dm = FullImageDatamanager(bilateral_config(str(root), "", seed,
+                                               True).data, seed=seed)
+    t = Trainer(bilateral_config(str(root), str(work / "bilateral"), seed,
+                                 True), datamanager=dm)
+    ms = {}
+    for grid in (True, False):
+        tt = t if grid else Trainer(bilateral_config(
+            str(root), str(work / "bilateral_off"), seed, False),
+            datamanager=dm)
+        record = {"ms": {}, "loss": []}
+        orig = tt._get_scan_fn
+
+        def get(*a, _orig=orig, _rec=record, **kw):
+            r, ds = _orig(*a, **kw)
+            return TimedRunner(r, _rec, ds.width), ds
+        tt._get_scan_fn = get
+        kernels = (rp.COMPOSITE, rp.COMPOSITE_BWD, tiles.SLAB_GATHER)
+        for kern in kernels:
+            kern.reset()
+        tt.train(finalize=False)
+        launches = {k.symbol: k.launches for k in kernels}
+        ms[grid] = statistics.median(record["ms"][W])
+        check(len(record["loss"]) == BILATERAL_STEPS
+              and all(math.isfinite(x) for x in record["loss"]),
+              f"{BILATERAL_STEPS} finite losses (grid {grid})")
+        check(min(launches.values()) >= BILATERAL_STEPS,
+              f"every kernel launched once per step (grid {grid})")
+        print(f"  {BILATERAL_STEPS} steps on the graph path, grid {grid}: "
+              f"median {ms[grid]:.3f} ms per step over "
+              f"{len(record['ms'][W])} chunks; launches {launches}")
+    # a chunk as a graph against the per-step loop, from the trained state:
+    # its grids' second moments hold 200 steps of gradients, so rounding
+    # in the atomics of grid_sample's backward stays rounding (from zero
+    # moments the first Adam updates are lr * sign(g), which a near-zero
+    # gradient's rounding can flip)
+    n = BILATERAL_CHUNK
+    runner = make_scan_steps(t.cfg, t.optims, t._device_dataset(1), n)
+    perm = t._next_perm(n)
+    bgs = t._backgrounds(t.state.step, n)
+    state0 = ckpt.copy_state(t.state, "cuda")
+    runner(ckpt.copy_state(state0, "cuda"), perm, bgs)   # the capture
+    e1, losses1, eager_ms = eager_chunk(runner, ckpt.copy_state(
+        state0, "cuda"), perm, bgs)
+    e2, losses2, _ = eager_chunk(runner, ckpt.copy_state(state0, "cuda"),
+                                 perm, bgs)
+    g, rows, graph_ms_ = graph_chunk(runner, ckpt.copy_state(state0, "cuda"),
+                                     perm, bgs)
+    spread = max(abs(a - b) / abs(b) for a, b in zip(losses1, losses2))
+    err = float(max(abs(a - b) / abs(b)
+                    for a, b in zip(rows["loss"], losses1)))
+    g_err = float((g.bilateral_grids - e1.bilateral_grids).abs().max())
+    g_spread = float((e2.bilateral_grids - e1.bilateral_grids).abs().max())
+    moved = float((e1.bilateral_grids - state0.bilateral_grids).abs().max())
+    bar, g_bar = max(1e-4, 2 * spread), max(1e-5, 2 * g_spread)
+    print(f"  a chunk of {n}: per-step loss graph against eager {err:.3e} "
+          f"(eager against eager {spread:.3e}, bar {bar:.1e}); grids graph "
+          f"against eager {g_err:.3e} (eager against eager {g_spread:.3e}, "
+          f"bar {g_bar:.1e}; the grids moved {moved:.3e}); graph "
+          f"{graph_ms_:.3f} ms per step, eager {eager_ms:.3f}")
+    check(err <= bar, "bilateral chunk: losses within the bar")
+    check(g_err <= g_bar, "bilateral chunk: grids within the bar")
+    check("tv_loss" in rows, "the chunk's rows carry tv_loss")
+    out["chunk"] = {"loss_rel_err": err, "eager_spread": spread,
+                    "grid_err": g_err, "grid_spread": g_spread,
+                    "graph_ms_per_step": graph_ms_,
+                    "eager_ms_per_step": eager_ms}
+    del runner, state0, e1, e2, g
+
+    ident = init_bilateral_grids(t.state.bilateral_grids.shape[0],
+                                 device="cuda")
+    off = float((t.state.bilateral_grids - ident).abs().max())
+    train_rows = metrics_rows(t.run_dir, "train")
+    tv = [r["tv_loss"] for r in train_rows if "tv_loss" in r]
+    print(f"  grids off identity by {off:.4e}; tv_loss logged in "
+          f"{len(tv)} of {len(train_rows)} train rows (last {tv[-1]:.3e})")
+    check(off > 0, "the grids left identity")
+    check(len(tv) == len(train_rows) > 0, "tv_loss logged in every train row")
+    back = ckpt.load_state(t.run_dir / "ckpts")
+    same = torch.equal(back.bilateral_grids, t.state.bilateral_grids) and \
+        all(torch.equal(back.bilateral_grid_state[k],
+                        t.state.bilateral_grid_state[k])
+            for k in ("count", "mu", "nu"))
+    meta = ckpt.checkpoint_meta(t.run_dir / "ckpts")
+    check(same and meta["use_bilateral_grid"]
+          and meta["bilateral_grid_shape"] == [16, 16, 8],
+          "the checkpoint restores the grids and their moments bit-equal")
+    out.update({"ms_per_step_grid": ms[True], "ms_per_step_no_grid": ms[False],
+                "grid_off_identity": off, "tv_rows": len(tv)})
+    del t, back
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  bilateral phase wall time {out['wall_s']:.2f} s")
+    return out
+
+
+# ----------------------------------------------------------- viewer phase
+
+VIEWER_STEPS = 60
+
+
+def _get(url, timeout=120):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+def phase_viewer(seed, root, work):
+    """The room trained with ``vis="viewer"`` on the graph path while a
+    client renders (once while a key is being captured), reads the status,
+    the splat buffer and a camera path, and pauses and resumes training;
+    then a chunk replayed under concurrent renders against the per-step
+    loop, the launches one render makes, and ``cli view`` on the run's
+    checkpoint."""
+    import dataclasses
+    import threading
+
+    from qed_splatter_tpu_torch import cli
+    from qed_splatter_tpu_torch.data import png
+    from qed_splatter_tpu_torch.data.dataset import FullImageDatamanager
+    from qed_splatter_tpu_torch.engine import checkpoint as ckpt
+    from qed_splatter_tpu_torch.engine import scan_runner
+    from qed_splatter_tpu_torch.engine.trainer import Trainer
+    from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
+    from qed_splatter_tpu_torch.ops import tiles
+
+    print(f"phase viewer: the room at {W}x{H}, {VIEWER_STEPS} steps with "
+          f"vis=viewer on the graph path (card: {card_state()})", flush=True)
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(
+        bilateral_config(str(root), str(work / "viewer"), seed, False),
+        max_num_iterations=VIEWER_STEPS, steps_per_save=VIEWER_STEPS,
+        steps_per_dispatch=10, vis="viewer", viewer_port=0)
+    dm = FullImageDatamanager(cfg.data, seed=seed)
+    t = Trainer(cfg, datamanager=dm)
+    base = f"http://127.0.0.1:{t.viewer.port}"
+    capturing, sent = threading.Event(), threading.Event()
+    marks = {}
+    real_capture = scan_runner.ScanRunner._capture_locked
+
+    def capture(self, state):
+        # called under CAPTURE_LOCK: let the client's render arrive and
+        # block on the lock before the capture starts
+        capturing.set()
+        sent.wait(30)
+        time.sleep(0.3)
+        real_capture(self, state)
+        marks.setdefault("capture_end", time.perf_counter())
+    scan_runner.ScanRunner._capture_locked = capture
+    seen = {"renders": [], "errors": []}
+
+    def client():
+        try:
+            capturing.wait(120)
+            sent.set()
+            t1 = time.perf_counter()
+            code, body = _get(f"{base}/render?az=0.5&el=0.2&r=1.5&w=640&h=480")
+            seen["during_capture"] = (t1, time.perf_counter(), code,
+                                      png.decode_png(body).shape)
+            # pause at once (60 steps take about a second): the gate holds
+            # the loop at the next chunk's start, and the requests below
+            # run while it waits
+            _get(f"{base}/control?cmd=pause")
+            time.sleep(1.0)            # the chunk in flight ends
+            s0 = t.state.step
+            for i in range(5):
+                code, body = _get(f"{base}/render?az={0.3 * i}&el=0.1&r=1.5"
+                                  f"&w={W}&h={H}")
+                seen["renders"].append((code, png.decode_png(body).shape))
+            seen["status"] = json.loads(_get(f"{base}/status")[1])
+            code, body = _get(f"{base}/splats")
+            seen["splats"] = (code, len(body))
+            for az in (0.0, 1.0):
+                _get(f"{base}/keyframe?az={az}&el=0.2&r=1.5")
+            code, body = _get(f"{base}/campath?seconds=1&fps=4&w=320&h=240")
+            seen["campath"] = (code, len(json.loads(body)["camera_path"]))
+            time.sleep(0.5)
+            seen["held"] = (s0, t.state.step)
+            seen["paused_status"] = json.loads(_get(f"{base}/status")[1])
+            _get(f"{base}/control?cmd=resume")
+        except Exception as e:         # reported and failed below
+            seen["errors"].append(repr(e))
+            sent.set()
+            _get(f"{base}/control?cmd=resume")
+
+    th = threading.Thread(target=client)
+    th.start()
+    try:
+        t.train()
+    finally:
+        scan_runner.ScanRunner._capture_locked = real_capture
+        th.join(300)
+    print(f"  client errors {seen['errors']}")
+    check(not seen["errors"], "every viewer request answered")
+    t1, t2, code, shape = seen["during_capture"]
+    print(f"  /render sent during a capture: {code}, {shape}, answered "
+          f"{(t2 - marks['capture_end']) * 1e3:.1f} ms after the capture "
+          f"ended ({(t2 - t1) * 1e3:.1f} ms in all)")
+    check(code == 200 and shape == (480, 640, 3)
+          and t2 >= marks["capture_end"], "the render asked for during a "
+          "capture waited for it and decodes to the requested size")
+    check(all(c == 200 and s == (H, W, 3) for c, s in seen["renders"])
+          and len(seen["renders"]) == 5, f"5 more renders at {W}x{H}")
+    check(seen["status"]["training"] and seen["splats"][0] == 200
+          and seen["splats"][1] > 0 and seen["campath"] == (200, 4),
+          "/status, /splats and /campath answered")
+    s0, s1 = seen["held"]
+    print(f"  pause held the step at {s0} (after a wait {s1}); the run "
+          f"ended at {t.state.step}; status {seen['status']['step']}, "
+          f"{seen['status']['gaussian_count']} gaussians")
+    check(s0 == s1 < VIEWER_STEPS and t.state.step == VIEWER_STEPS,
+          "pause held the step between chunks, resume finished the run")
+    timings = list(t.viewer.state.timings)
+    r_ms = [r for r, _ in timings[1:]]
+    e_ms = [e for _, e in timings[1:]]
+    print(f"  /render at {W}x{H}: render {statistics.median(r_ms):.3f} ms "
+          f"between CUDA events (min {min(r_ms):.3f}, max {max(r_ms):.3f}), "
+          f"PNG encode {statistics.median(e_ms):.1f} ms (min {min(e_ms):.1f},"
+          f" max {max(e_ms):.1f})")
+
+    # a chunk replayed while renders run on the server threads, against the
+    # per-step loop from the same state
+    key = next(iter(t._runners))
+    runner = t._runners[key]
+    perm = t._next_perm(runner.n)
+    bgs = t._backgrounds(t.state.step, runner.n)
+    state0 = ckpt.copy_state(t.state, "cuda")
+    stop, count = threading.Event(), [0]
+
+    def hammer():
+        while not stop.is_set():
+            _get(f"{base}/render?az=1.0&el=0.2&r=1.5&w=640&h=480")
+            count[0] += 1
+    th = threading.Thread(target=hammer)
+    th.start()
+    try:
+        e1, losses1, _ = eager_chunk(runner, ckpt.copy_state(state0, "cuda"),
+                                     perm, bgs)
+        e2, losses2, _ = eager_chunk(runner, ckpt.copy_state(state0, "cuda"),
+                                     perm, bgs)
+        g, rows, _ = graph_chunk(runner, ckpt.copy_state(state0, "cuda"),
+                                 perm, bgs)
+    finally:
+        stop.set()
+        th.join(120)
+    spread = max(abs(a - b) / abs(b) for a, b in zip(losses1, losses2))
+    err = float(max(abs(a - b) / abs(b)
+                    for a, b in zip(rows["loss"], losses1)))
+    bar = max(1e-4, 2 * spread)
+    print(f"  a replayed chunk of {runner.n} under {count[0]} concurrent "
+          f"renders: loss against the per-step loop {err:.3e} (eager spread "
+          f"{spread:.3e}, bar {bar:.1e}); captures {runner.captures}")
+    check(err <= bar and runner.captures == 1, "replays equal eager steps "
+          "beside the viewer's renders, one capture")
+    del e1, e2, g, state0
+
+    # the launches of one render, the trainer idle
+    kernels = (rp.COMPOSITE, tiles.SLAB_GATHER)
+    for kern in kernels:
+        kern.reset()
+    for _ in range(3):
+        _get(f"{base}/render?az=0.2&el=0.2&r=1.5&w={W}&h={H}")
+    per_render = {k.symbol: k.launches / 3 for k in kernels}
+    print(f"  launches per /render {per_render}")
+    check(all(v >= 1 for v in per_render.values()), "each render launched "
+          "composite and slab_gather")
+    t.viewer.stop()
+
+    # cli view on the run's checkpoint
+    stop, started, rc = threading.Event(), [], []
+    th = threading.Thread(target=lambda: rc.append(cli.main(
+        ["view", "--load-dir", str(t.run_dir / "ckpts"), "--port", "0"],
+        stop=stop, on_start=started.append)))
+    th.start()
+    try:
+        for _ in range(600):
+            if started:
+                break
+            time.sleep(0.05)
+        t1 = time.perf_counter()
+        code, body = _get(f"http://127.0.0.1:{started[0].port}/render?az=0"
+                          f"&el=0.2&r=1.5&w=640&h=480")
+        view_ms = (time.perf_counter() - t1) * 1e3
+        shape = png.decode_png(body).shape
+    finally:
+        stop.set()
+        th.join(60)
+    print(f"  cli view: /render {code} {shape} in {view_ms:.1f} ms; rc {rc}")
+    check(code == 200 and shape == (480, 640, 3) and rc == [0],
+          "cli view answered a render and stopped")
+    del t, runner
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"  viewer phase wall time {wall:.2f} s")
+    return {"render_ms": statistics.median(r_ms),
+            "png_encode_ms": statistics.median(e_ms),
+            "launches_per_render": per_render, "paused_at": s0,
+            "replay_loss_err": err, "cli_view_render_ms": view_ms,
+            "wall_s": wall}
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3154,10 +3796,17 @@ def main() -> int:
             args.seed, root, Path(tmp) / "trainer" / "qed-splatter",
             Path(tmp) / "pipeline")
         kernels += entries
+        codec = phase_codec(root)
+        bilateral = phase_bilateral(args.seed, root, Path(tmp))
+        viewer = phase_viewer(args.seed, root, Path(tmp))
+        entries, forest = phase_forest(args.seed, Path(tmp))
+        kernels += entries
     print(json.dumps({"render_ms_per_frame": frames,
                       "train_ms_per_step": steps, "bench": bench_line,
                       "trainer": trainer, "dispatch": dispatch,
-                      "pipeline": pipeline}))
+                      "pipeline": pipeline, "codec": codec,
+                      "bilateral": bilateral, "viewer": viewer,
+                      "forest": forest}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,8 @@
     python -m qed_splatter_tpu_torch.cli export --load-dir CKPTS
         [--output splat.ply|splat.splat] [--pointcloud] [--crop-* ...]
     python -m qed_splatter_tpu_torch.cli eval-pc --pred recon.ply --gt scan.ply
+    python -m qed_splatter_tpu_torch.cli view --load-dir CKPTS [--port 7007]
+        [--crop-* ...]
 
 Every field of the config dataclasses is a flag, as in the JAX package's
 ``qed``: nested fields take dotted prefixes (``--model.sh-degree``),
@@ -21,8 +23,8 @@ booleans ``--x`` / ``--no-x``, Literal types become choices.
 ``train`` holds the device lock (``utils/chiplock.py``) for its life.
 ``--supervise`` runs the training in a child process and restarts it from
 the run's latest checkpoint when it dies (only the child takes the lock).
-``eval-pc`` runs on the host geometry core (``native.py``). ``view`` is not
-ported and raises, naming its ROADMAP item.
+``eval-pc`` runs on the host core (``native.py``). ``view`` serves the live
+viewer (``viewer.py``) over a checkpoint until Ctrl-C.
 """
 
 from __future__ import annotations
@@ -32,11 +34,12 @@ import dataclasses
 import os
 import subprocess
 import sys
+import threading
+import time
 import typing
 from pathlib import Path
 from typing import Optional
 
-from qed_splatter_tpu_torch import not_ported
 from qed_splatter_tpu_torch.configs import TrainerConfig
 
 
@@ -458,24 +461,66 @@ def cmd_eval_pc(argv) -> int:
     return 0
 
 
+def cmd_view(argv, stop: Optional[threading.Event] = None,
+             on_start=None) -> int:
+    """Standalone viewer over a checkpoint, until Ctrl-C (or ``stop`` is
+    set, for callers that embed it; ``on_start(viewer)`` is called once it
+    serves)."""
+    from qed_splatter_tpu_torch.engine import checkpoint as ckpt
+    from qed_splatter_tpu_torch.viewer import Viewer
+
+    parser = argparse.ArgumentParser(
+        prog="python -m qed_splatter_tpu_torch.cli view")
+    parser.add_argument("--load-dir", required=True)
+    parser.add_argument("--port", type=int, default=7007)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to load and render on")
+    add_crop_args(parser)
+    ns = parser.parse_args(argv)
+    state = _load_state(ns)
+    if state is None:
+        return 2
+    cfg = ckpt.model_config_from_meta(ckpt.checkpoint_meta(ns.load_dir))
+    # centre the orbit on the alive gaussians
+    p = state.params
+    means = p.means[p.alive].cpu().numpy()
+    target = tuple(means.mean(0)) if len(means) else (0.0, 0.0, 0.0)
+    viewer = Viewer(cfg, port=ns.port, target=target,
+                    crop=crop_from_args(ns), device=ns.device)
+    viewer.update(state.params, int(state.step))
+    viewer.start()
+    if on_start is not None:
+        on_start(viewer)
+    print("Press Ctrl-C to stop.")
+    try:
+        while stop is None or not stop.is_set():
+            time.sleep(0.2)
+    except KeyboardInterrupt:
+        pass
+    viewer.stop()
+    return 0
+
+
 COMMANDS = {"train": cmd_train, "train-multi": cmd_train_multi,
             "eval": cmd_eval, "init-pc": cmd_init_pc, "export": cmd_export,
-            "render": cmd_render, "eval-pc": cmd_eval_pc}
+            "render": cmd_render, "eval-pc": cmd_eval_pc, "view": cmd_view}
 
 
-def main(argv: Optional[list] = None) -> int:
+def main(argv: Optional[list] = None,
+         stop: Optional[threading.Event] = None, on_start=None) -> int:
+    """Run one subcommand; ``stop`` and ``on_start`` go to ``view``."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m qed_splatter_tpu_torch.cli "
               f"{{{','.join(COMMANDS)}}} [flags]")
         return 0 if argv else 2
     cmd = argv[0]
-    if cmd == "view":
-        raise not_ported("the 'view' subcommand", 10, "the viewer")
     if cmd not in COMMANDS:
-        print(f"unknown command: {cmd}; choose from {[*COMMANDS, 'view']}",
+        print(f"unknown command: {cmd}; choose from {list(COMMANDS)}",
               file=sys.stderr)
         return 2
+    if cmd == "view":
+        return cmd_view(argv[1:], stop=stop, on_start=on_start)
     return COMMANDS[cmd](argv[1:])
 
 

@@ -21,8 +21,9 @@ keep their names and defaults; their meaning in the port:
 - ``TrainerConfig.supervise``, ``max_restarts``: ``cli train``'s restart
   loop; ``journal_retry``: the crash policy's amnesty
   (``engine/journal.py``).
-- ``TrainerConfig.viewer_port`` and ``shard_views_by_process``: no effect;
-  the viewer and sharding raise.
+- ``TrainerConfig.viewer_port``: the port of the viewer's HTTP server with
+  ``vis="viewer"`` (0 picks a free one); ``shard_views_by_process``: no
+  effect, sharding raises.
 """
 
 from __future__ import annotations

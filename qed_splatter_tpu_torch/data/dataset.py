@@ -4,8 +4,8 @@ Whole-image training, one camera per step, as nerfstudio's
 ``FullImageDatamanager[DepthDataset]``: images cached host-side as uint8,
 depth maps from ``depth_file_path`` scaled by ``depth_unit_scale_factor``
 times the pose scale factor into ``depth_image``, and an optional
-``mask``. Images are decoded with :mod:`qed_splatter_tpu_torch.data.png`
-(no imaging library); a dataset-level ``downscale_factor`` is PIL's
+``mask``. Images (PNG or baseline JPEG) are decoded with
+:mod:`qed_splatter_tpu_torch.data.image` (no imaging library); a dataset-level ``downscale_factor`` is PIL's
 ``BILINEAR`` resize. The camera order is the JAX package's: the same
 ``np.random.default_rng(seed + process_index)`` epoch permutations.
 
@@ -23,6 +23,7 @@ import numpy as np
 
 from qed_splatter_tpu_torch.configs import DataConfig
 from qed_splatter_tpu_torch.data import png
+from qed_splatter_tpu_torch.data.image import read_image
 from qed_splatter_tpu_torch.data.transforms_json import (
     Frame,
     ParsedScene,
@@ -40,7 +41,7 @@ def load_depth(path: Path) -> np.ndarray:
             depth = depth[list(depth.keys())[0]]
         depth = depth.astype(np.float32)
     else:
-        depth = png.read_png(path).astype(np.float32)
+        depth = read_image(path).astype(np.float32)
     if depth.ndim == 3:
         depth = depth[..., 0]
     return depth
@@ -48,7 +49,7 @@ def load_depth(path: Path) -> np.ndarray:
 
 def load_image_uint8(path: Path, downscale: int = 1) -> np.ndarray:
     """RGB image as uint8 [H, W, 3]."""
-    img = png.to_rgb(png.read_png(path))
+    img = png.to_rgb(read_image(path))
     if downscale > 1:
         h, w = img.shape[:2]
         img = png.resize_bilinear(img, w // downscale, h // downscale)
@@ -121,7 +122,7 @@ class FullImageDatamanager:
                 )
             item["depth_image"] = depth[..., None].astype(np.float32)
         if frame.mask_path is not None:
-            m = png.to_luma(png.read_png(frame.mask_path)).astype(np.float32)
+            m = png.to_luma(read_image(frame.mask_path)).astype(np.float32)
             if m.shape[:2] != image.shape[:2]:
                 m = _resize_nearest(m, image.shape[0], image.shape[1])
             if dist is not None:

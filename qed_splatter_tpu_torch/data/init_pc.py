@@ -10,8 +10,8 @@ merged in one bounded-memory pass and voxel downsampled once more. Mode 2
 ``device``; colour samples within max(abs_tol, rel_tol * z) of the measured
 depth are averaged into uint8 colours, and points no frame sees stay black.
 The result is written as a PLY, and ``transforms.json``'s ``ply_file_path``
-is pointed at it unless ``update_transforms`` is off. Images are decoded by
-``data/png.py``.
+is pointed at it unless ``update_transforms`` is off. Images (PNG or
+baseline JPEG) are decoded by ``data/image.py``.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import torch
 
 from qed_splatter_tpu_torch import resolve_device
 from qed_splatter_tpu_torch.data import png
+from qed_splatter_tpu_torch.data.image import read_image
 from qed_splatter_tpu_torch.data.dataset import load_depth
 from qed_splatter_tpu_torch.data.ply import PlyData, read_ply, write_ply
 from qed_splatter_tpu_torch.native import (
@@ -235,7 +236,7 @@ def colorize_pointcloud(args: InitPcArgs, pcd: PlyData, log=print,
         color_count[:] += c
 
     for frame in frames:
-        color = png.to_rgb(png.read_png(dataset_path / frame["file_path"])
+        color = png.to_rgb(read_image(dataset_path / frame["file_path"])
                            ).astype(np.float32) / 255.0
         depth = frame_depth(dataset_path, frame, args.depth_unit_scale_factor)
         if color.shape[:2] != depth.shape[:2]:

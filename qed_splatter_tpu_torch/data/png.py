@@ -4,10 +4,13 @@ The port reads and writes its datasets with this module on every machine,
 so it needs no imaging library. It covers what an RGB-D dataset holds:
 
 - 8- or 16-bit gray (depth maps are 16-bit), gray + alpha, RGB and RGBA;
-- non-interlaced images, with any of the five filter types per row.
+- non-interlaced images, with any of the five filter types per row,
+  undone by the host core (``native.py``, ``csrc/qedcore.cpp``); the row
+  loops :func:`_paeth_row` and :func:`_average_row` are its plain version.
 
 Palette images, bit depths below 8 and interlaced files raise
-:class:`PngError` instead of being misread.
+:class:`PngError` instead of being misread. :mod:`.image` reads PNG and JPEG
+files alike.
 
 On top of the codec, two of PIL's conversions that the data layer needs:
 :func:`to_rgb` (``Image.convert("RGB")``) and :func:`to_luma`
@@ -25,13 +28,15 @@ from pathlib import Path
 
 import numpy as np
 
+from qed_splatter_tpu_torch.data.image import ImageError
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> channels (3, palette, is refused)
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 _COLOR_TYPE = {v: k for k, v in _CHANNELS.items()}
 
 
-class PngError(ValueError):
+class PngError(ImageError):
     """A file this codec does not read (or not a PNG at all)."""
 
 
@@ -75,17 +80,31 @@ def _average_row(row: bytearray, prior: bytes, bpp: int) -> None:
 
 def _unfilter(data: np.ndarray, height: int, stride: int,
               bpp: int, path) -> np.ndarray:
-    """[height, stride] uint8 of raw samples from the filtered scanlines."""
+    """[height, stride] uint8 of raw samples from the filtered scanlines
+    (the host core's ``qed_png_unfilter``)."""
+    from qed_splatter_tpu_torch import native
+
     if data.size != height * (stride + 1):
         raise PngError(f"PNG data has {data.size} bytes, expected "
                        f"{height * (stride + 1)}: {path}")
+    out, bad = native.png_unfilter(data, height, stride, bpp)
+    if bad >= 0:
+        kind = int(data[bad * (stride + 1)])
+        raise PngError(f"unknown PNG filter type {kind} in row {bad}: "
+                       f"{path}")
+    return out
+
+
+def unfilter_plain(data: np.ndarray, height: int, stride: int,
+                   bpp: int) -> np.ndarray:
+    """The plain version of :func:`_unfilter`: numpy for None, Sub and Up,
+    the row loops for Average and Paeth."""
     rows = data.reshape(height, stride + 1)
-    kinds = rows[:, 0]
     out = np.empty((height, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
     for y in range(height):
         cur = rows[y, 1:]
-        kind = int(kinds[y])
+        kind = int(rows[y, 0])
         if kind == 0:
             rec = cur.copy()
         elif kind == 1:      # Sub: a running sum along each byte lane
@@ -93,17 +112,13 @@ def _unfilter(data: np.ndarray, height: int, stride: int,
             rec = np.cumsum(lanes, axis=0, dtype=np.uint8).reshape(-1)
         elif kind == 2:      # Up
             rec = cur + prior
-        elif kind == 3:
+        elif kind in (3, 4):
             buf = bytearray(cur.tobytes())
-            _average_row(buf, prior.tobytes(), bpp)
-            rec = np.frombuffer(bytes(buf), np.uint8)
-        elif kind == 4:
-            buf = bytearray(cur.tobytes())
-            _paeth_row(buf, prior.tobytes(), bpp)
+            (_average_row if kind == 3 else _paeth_row)(
+                buf, prior.tobytes(), bpp)
             rec = np.frombuffer(bytes(buf), np.uint8)
         else:
-            raise PngError(f"unknown PNG filter type {kind} in row {y}: "
-                           f"{path}")
+            raise PngError(f"unknown PNG filter type {kind} in row {y}")
         out[y] = rec
         prior = out[y]
     return out

@@ -3,7 +3,8 @@
 A checkpoint is a directory ``<ckpt_dir>/step-XXXXXXXXX/`` holding
 ``state.pt``, a ``torch.save`` of the whole :class:`TrainState` as CPU
 tensors (params, Adam moments, camera deltas and their moments, densify
-stats, step), and ``meta.json``. ``<ckpt_dir>/latest.json`` repeats the
+stats, step, and the bilateral grids with their moments when the run has
+them), and ``meta.json``. ``<ckpt_dir>/latest.json`` repeats the
 newest checkpoint's ``meta.json``. The metadata carries the JAX package's
 keys: ``step``, ``path``, ``capacity``, ``num_cameras``, ``sh_degree``,
 the bilateral-grid keys, the dataparser transform and scale, the model
@@ -59,6 +60,12 @@ def copy_state(state: TrainState, device) -> TrainState:
             getattr(state.stats, f.name).detach().to(device, copy=True)
             for f in dataclasses.fields(DensifyStats))),
         step=int(state.step),
+        bilateral_grids=(
+            state.bilateral_grids.detach().to(device, copy=True)
+            if state.bilateral_grids is not None else None),
+        bilateral_grid_state=(
+            _adam_to(state.bilateral_grid_state, device)
+            if state.bilateral_grid_state is not None else None),
     )
 
 
@@ -74,6 +81,8 @@ def state_to_dict(state: TrainState) -> Dict:
         "stats": {f.name: getattr(cpu.stats, f.name)
                   for f in dataclasses.fields(DensifyStats)},
         "step": cpu.step,
+        "bilateral_grids": cpu.bilateral_grids,
+        "bilateral_grid_state": cpu.bilateral_grid_state,
     }
 
 
@@ -103,8 +112,10 @@ def save_checkpoint(ckpt_dir, state: TrainState, step: int,
         "capacity": int(state.params.capacity),
         "num_cameras": int(state.camera_opt.shape[0]),
         "sh_degree": int(state.params.sh_degree),
-        "use_bilateral_grid": False,
-        "bilateral_grid_shape": None,
+        "use_bilateral_grid": state.bilateral_grids is not None,
+        "bilateral_grid_shape": (
+            list(state.bilateral_grids.shape[1:4])
+            if state.bilateral_grids is not None else None),
         # the dataparser normalization, for the inverse transform on
         # export: world = R^T ((p / scale) - t)
         "dataparser_transform": (
@@ -139,6 +150,8 @@ def restore_checkpoint(path, device="cuda") -> TrainState:
         camera_opt_state=d["camera_opt_state"],
         stats=DensifyStats(**d["stats"]),
         step=int(d["step"]),
+        bilateral_grids=d.get("bilateral_grids"),
+        bilateral_grid_state=d.get("bilateral_grid_state"),
     )
 
 

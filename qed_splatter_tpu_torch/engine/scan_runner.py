@@ -26,6 +26,11 @@ capture). The body is captured after it and replayed for steps 2..n; later
 chunks replay all n. A capture that fails raises. On a CPU device the same
 body runs eagerly; nothing else differs.
 
+A capture is in the global capture mode, where a CUDA call from another
+thread can invalidate it: every warm-up and capture holds
+:data:`CAPTURE_LOCK`, and other threads that use the card beside training
+(the viewer's renders) take it around their device work.
+
 The graph reads and writes the state's tensors at the addresses it saw at
 capture. A refine, a rollback or a resume hands the runner other tensors:
 it compares ``data_ptr()``s and copies them into its own before the next
@@ -36,6 +41,7 @@ state is then the runner's tensors.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -56,9 +62,10 @@ from qed_splatter_tpu_torch.models.gaussians import FIELDS
 from qed_splatter_tpu_torch.models.splatfacto import background_color
 
 # the per-step metrics a chunk keeps (the JAX scan's stacked ``light``
-# dict), then the camera index each step read
+# dict, and the grids' ``tv_loss`` where the step has it), then the camera
+# index each step read
 LIGHT = ("loss", "psnr", "main_loss", "depth_loss", "tile_overflow",
-         "bbox_truncated", "tile_max_count", "nonfinite_grads")
+         "bbox_truncated", "tile_max_count", "nonfinite_grads", "tv_loss")
 
 # uint8 -> float32 / 255 as one IEEE division per value (numpy's, and the
 # per-step loop's), looked up in the body
@@ -121,7 +128,8 @@ class DeviceDataset:
 def _map_state(state: TrainState, fn) -> TrainState:
     """``state`` with each tensor ``x`` replaced by ``fn(x)``, in a fixed
     order: params, opt_state (by group), camera_opt, its Adam state,
-    stats."""
+    stats, then the bilateral grids and their Adam state where the state
+    has them."""
     def adam(s):
         return {k: fn(s[k]) for k in ("count", "mu", "nu")}
 
@@ -132,9 +140,15 @@ def _map_state(state: TrainState, fn) -> TrainState:
     camera_opt_state = adam(state.camera_opt_state)
     stats = DensifyStats(*(fn(getattr(state.stats, f.name))
                            for f in dataclasses.fields(DensifyStats)))
+    grids = gstate = None
+    if state.bilateral_grids is not None:
+        grids = fn(state.bilateral_grids)
+        gstate = adam(state.bilateral_grid_state)
     return dataclasses.replace(state, params=params, opt_state=opt_state,
                                camera_opt=camera_opt,
-                               camera_opt_state=camera_opt_state, stats=stats)
+                               camera_opt_state=camera_opt_state, stats=stats,
+                               bilateral_grids=grids,
+                               bilateral_grid_state=gstate)
 
 
 def state_tensors(state: TrainState) -> List[torch.Tensor]:
@@ -142,6 +156,9 @@ def state_tensors(state: TrainState) -> List[torch.Tensor]:
     _map_state(state, lambda x: out.append(x) or x)
     return out
 
+
+# held across each warm-up and capture; see the module docstring
+CAPTURE_LOCK = threading.Lock()
 
 _POOLS: Dict[int, tuple] = {}
 _STREAMS: Dict[int, torch.cuda.Stream] = {}
@@ -291,7 +308,12 @@ class ScanRunner:
 
     def _capture(self, state: TrainState) -> None:
         """Step 1 eagerly on a side stream (the warm-up), then the capture
-        of the body; neither may sync with the host."""
+        of the body; neither may sync with the host, and no other thread
+        may use the card meanwhile (:data:`CAPTURE_LOCK`)."""
+        with CAPTURE_LOCK:
+            self._capture_locked(state)
+
+    def _capture_locked(self, state: TrainState) -> None:
         cur = torch.cuda.current_stream(self.device)
         side = capture_stream(self.device)
         side.wait_stream(cur)

@@ -3,14 +3,18 @@
 
 One call does, for one camera, in the JAX step's order:
 
-- the training render with the camera-opt delta applied, and
-  :func:`~qed_splatter_tpu_torch.models.splatfacto.total_loss` plus the
-  camera-opt regularizer;
-- gradients to the six gaussian groups, the camera deltas and the absgrad
-  side channel (the compositing backward kernel on CUDA tensors);
+- the training render with the camera-opt delta applied; with
+  ``use_bilateral_grid``, the camera's colour grid applied to it and the
+  result clipped to [0, 1];
+- :func:`~qed_splatter_tpu_torch.models.splatfacto.total_loss` plus the
+  camera-opt regularizer and ``10 * total_variation_loss`` of the grids;
+- gradients to the six gaussian groups, the camera deltas, the grids and
+  the absgrad side channel (the compositing backward kernel on CUDA
+  tensors);
 - the count and zeroing of non-finite gradient elements, then the optional
   global-norm clip, before any optimizer state is touched;
-- the per-group Adam, then the camera Adam;
+- the per-group Adam, then the camera Adam, then the grids' Adam (group
+  ``bilateral_grid``);
 - the densification statistics.
 
 Parameters, Adam moments and counts and the statistics are updated **in
@@ -18,8 +22,7 @@ place**: the returned :class:`TrainState` holds the same tensors as the one
 passed in, with the next step. The body (:meth:`TrainStep.run`) is
 capture-clean, so ``engine/scan_runner.py`` replays it as a CUDA graph.
 ``cfg.mixed_precision`` takes the
-bf16 operand compositing kernels. The bilateral grid is not ported and
-raises.
+bf16 operand compositing kernels.
 """
 
 from __future__ import annotations
@@ -30,11 +33,16 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from qed_splatter_tpu_torch import not_ported, resolve_device
+from qed_splatter_tpu_torch import resolve_device
 from qed_splatter_tpu_torch.configs import ModelConfig
 from qed_splatter_tpu_torch.engine.densify import DensifyStats, \
     accumulate_stats_
 from qed_splatter_tpu_torch.engine.optim import GroupOptimizers, adam_init
+from qed_splatter_tpu_torch.models.bilateral_grid import (
+    apply_bilateral_grid,
+    init_bilateral_grids,
+    total_variation_loss,
+)
 from qed_splatter_tpu_torch.models.camera_opt import (
     apply_camera_opt,
     camera_opt_regularizer,
@@ -53,10 +61,6 @@ from qed_splatter_tpu_torch.ops.rasterize import absgrad_scatter
 from qed_splatter_tpu_torch.ops.ssim import ssim_bands
 
 
-def refuse_bilateral_grid() -> NotImplementedError:
-    return not_ported("use_bilateral_grid=True", 6, "models/bilateral_grid.py")
-
-
 @dataclasses.dataclass
 class TrainState:
     """Everything the step updates."""
@@ -67,18 +71,26 @@ class TrainState:
     camera_opt_state: Dict         # {"count", "mu", "nu"} of camera_opt
     stats: DensifyStats
     step: int
+    # per-camera colour grids [num_cameras, gh, gw, gd, 12] and their Adam
+    # state; None when the bilateral grid is off
+    bilateral_grids: Optional[torch.Tensor] = None
+    bilateral_grid_state: Optional[Dict] = None
 
 
 def init_train_state(params: GaussianParams, optims: GroupOptimizers,
-                     num_cameras: int,
-                     use_bilateral_grid: bool = False) -> TrainState:
+                     num_cameras: int, use_bilateral_grid: bool = False,
+                     bilateral_grid_shape=(16, 16, 8)) -> TrainState:
     """Zero moments, zero camera deltas and zero stats on the params'
-    device."""
-    if use_bilateral_grid:
-        raise refuse_bilateral_grid()
+    device; with ``use_bilateral_grid``, identity grids (one per camera)
+    with zero moments."""
     dev = params.means.device
     cam = torch.zeros((max(num_cameras, 1), 6), dtype=torch.float32,
                       device=dev)
+    grids = gstate = None
+    if use_bilateral_grid:
+        grids = init_bilateral_grids(max(num_cameras, 1),
+                                     tuple(bilateral_grid_shape), dev)
+        gstate = adam_init(grids)
     return TrainState(
         params=params,
         opt_state=optims.init(params.trainable_dict()),
@@ -86,6 +98,8 @@ def init_train_state(params: GaussianParams, optims: GroupOptimizers,
         camera_opt_state=adam_init(cam),
         stats=DensifyStats.zeros(params.capacity, dev),
         step=0,
+        bilateral_grids=grids,
+        bilateral_grid_state=gstate,
     )
 
 
@@ -95,7 +109,9 @@ def from_jax_train_state(d: Dict, device="cuda") -> TrainState:
     ``{"params": {field: array}, "opt_state": {group: {"count", "mu",
     "nu"}}, "camera_opt": array, "camera_opt_state": {"count", "mu", "nu"},
     "stats": {"grad_norm_sum", "vis_count", "max_radii_frac"}, "step": int}``
-    (the Adam count of a group is its ``ScaleByAdamState.count``)."""
+    and, when the grid is on, ``"bilateral_grids"`` and
+    ``"bilateral_grid_state"`` ({"count", "mu", "nu"}) (the Adam count of a
+    group is its ``ScaleByAdamState.count``)."""
     dev = resolve_device(device)
 
     def t(x):
@@ -112,6 +128,11 @@ def from_jax_train_state(d: Dict, device="cuda") -> TrainState:
         camera_opt_state=adam(d["camera_opt_state"]),
         stats=DensifyStats(**{k: t(v) for k, v in d["stats"].items()}),
         step=int(d["step"]),
+        bilateral_grids=(t(d["bilateral_grids"])
+                         if d.get("bilateral_grids") is not None else None),
+        bilateral_grid_state=(adam(d["bilateral_grid_state"])
+                              if d.get("bilateral_grid_state") is not None
+                              else None),
     )
 
 
@@ -125,6 +146,7 @@ class StepGrads:
     params: Dict[str, torch.Tensor]  # group -> gradient
     camera_opt: torch.Tensor       # [num_cameras, 6]
     absgrad: Optional[torch.Tensor]  # [C, 2] per-gaussian |grad| sums
+    bilateral_grids: Optional[torch.Tensor] = None  # [num_cameras, ...]
 
 
 @dataclasses.dataclass
@@ -161,8 +183,6 @@ class TrainStep:
                  height: int, has_depth: bool, has_mask: bool = False,
                  camera_opt_on: Optional[bool] = None,
                  need_absgrad: bool = True, device="cuda"):
-        if cfg.use_bilateral_grid:
-            raise refuse_bilateral_grid()
         self.cfg, self.optims = cfg, optims
         self.width, self.height = width, height
         self.has_depth, self.has_mask = has_depth, has_mask
@@ -207,6 +227,8 @@ class TrainStep:
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.trainable_dict().items()}
         cam = state.camera_opt.detach().requires_grad_(True)
+        grids = (state.bilateral_grids.detach().requires_grad_(True)
+                 if cfg.use_bilateral_grid else None)
         side = None
         if self.need_absgrad:
             # the kernel path takes the absgrad seed on the gather, the
@@ -227,17 +249,30 @@ class TrainStep:
             tile_eps=None if cfg.use_pallas else side,
             absgrad_seed=side if cfg.use_pallas else None,
         )
+        if grids is not None:
+            # the camera's colour correction, on the training render only
+            grid = grids.index_select(0, inp.cam_idx.reshape(1))[0]
+            out = dataclasses.replace(out, rgb=torch.clamp(
+                apply_bilateral_grid(grid, out.rgb), 0.0, 1.0))
         loss, losses = total_loss(out, inp.rgb, inp.depth, p, cfg, inp.step,
                                   inp.mask, self.ssim_bands)
         if self.camera_opt_on:
             reg = camera_opt_regularizer(delta)
             losses = dict(losses, camera_opt_regularizer=reg)
             loss = loss + reg
-        inputs = [*leaves.values(), cam] + ([side] if side is not None else [])
+        if grids is not None:
+            tv = 10.0 * total_variation_loss(grids)
+            losses = dict(losses, tv_loss=tv)
+            loss = loss + tv
+        inputs = ([*leaves.values(), cam]
+                  + ([grids] if grids is not None else [])
+                  + ([side] if side is not None else []))
         grads = torch.autograd.grad(loss, inputs, allow_unused=True)
         g_params = {k: _zeros_if_none(g, leaves[k])
                     for k, g in zip(leaves, grads)}
         g_cam = _zeros_if_none(grads[len(leaves)], cam)
+        g_grids = (_zeros_if_none(grads[len(leaves) + 1], grids)
+                   if grids is not None else None)
         absgrad = None
         if side is not None:
             g_side = _zeros_if_none(grads[-1], side)
@@ -245,14 +280,15 @@ class TrainStep:
                 g_side, out.tile_lists, state.params.capacity))
         return StepGrads(loss.detach(), {k: v.detach() for k, v in
                                          losses.items()},
-                         out, g_params, g_cam, absgrad)
+                         out, g_params, g_cam, absgrad, g_grids)
 
     def run(self, state: TrainState, inp: StepInputs) -> Dict:
         """The step's body: updates ``state``'s tensors and ``inp.step`` in
         place and returns the metrics (0-d device tensors)."""
         cfg = self.cfg
         sg = self._grads(state, inp)
-        g_params, g_cam = sg.params, sg.camera_opt
+        g_params, g_cam, g_grids = sg.params, sg.camera_opt, \
+            sg.bilateral_grids
         if sg.absgrad is not None:
             accumulate_stats_(state.stats, sg.absgrad, sg.out.radii,
                               self.max_hw)
@@ -261,7 +297,8 @@ class TrainStep:
             # gradient hygiene before any optimizer state is touched
             nonfinite = None
             if cfg.sanitize_grads:
-                every = [*g_params.values(), g_cam]
+                every = [*g_params.values(), g_cam] + (
+                    [g_grids] if g_grids is not None else [])
                 nonfinite = sum((~torch.isfinite(g)).sum().to(torch.float32)
                                 for g in every)
                 for g in every:
@@ -279,6 +316,10 @@ class TrainStep:
             if self.camera_opt_on:
                 self.optims.update_group("camera_opt", state.camera_opt,
                                          g_cam, state.camera_opt_state)
+            if g_grids is not None:
+                self.optims.update_group("bilateral_grid",
+                                         state.bilateral_grids, g_grids,
+                                         state.bilateral_grid_state)
 
             out = sg.out
             metrics = dict(sg.losses)

@@ -36,7 +36,12 @@ Both share:
   checkpoint, or ignore;
 - eval renders that re-render once at a doubled K when they truncated;
 - checkpoints, and ``finalize``: a checkpoint (with the pair-budget table,
-  which the JAX package's ``finalize`` drops) and ``splat.ply``;
+  which the JAX package's ``finalize`` drops), ``splat.ply``, and
+  ``kernel_launches.json``: this process's launches of each CUDA kernel and
+  its variants (graph replays counted), the record of what the run ran
+  when it ran in a child process (``--supervise``);
+- the wall ms of each growth and each refine (with its opacity reset and
+  growth check) in their metrics rows;
 - with ``profile_dir``, a ``torch.profiler`` trace (CPU and, on CUDA, the
   device) of steps start + 10 to start + 14 of each :meth:`Trainer.train`
   call on the per-step loop, the JAX trainer's window, written as a Chrome
@@ -54,16 +59,20 @@ pre-growth state and rollback target is a copy. Random draws come from
 datamanager's.
 
 ``vis`` set to ``tensorboard``, ``wandb`` or ``comet`` adds that writer
-(``engine/writer.py``). Not ported, each refused with
+(``engine/writer.py``); ``vis="viewer"`` starts the live viewer
+(``viewer.py``) on ``viewer_port``: it gets a snapshot of the params and
+the metrics at every log, and its pause holds the loop between dispatches
+(between chunks on the graph path). ``use_bilateral_grid`` trains one
+colour grid per camera. Not ported, refused with
 :class:`NotImplementedError` naming its ROADMAP item: more than one data or
-model shard, the viewer and the bilateral grid.
-``TrainerConfig.mixed_precision`` turns on the model's (the bf16 operand
-compositing kernels), as in the JAX trainer.
+model shard. ``TrainerConfig.mixed_precision`` turns on the model's (the
+bf16 operand compositing kernels), as in the JAX trainer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import os
 import time
@@ -73,6 +82,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from qed_splatter_tpu_torch import cuda as qcuda
 from qed_splatter_tpu_torch import not_ported, resolve_device
 from qed_splatter_tpu_torch.configs import TrainerConfig
 from qed_splatter_tpu_torch.data.dataset import FullImageDatamanager
@@ -92,7 +102,6 @@ from qed_splatter_tpu_torch.engine.train_step import (
     TrainState,
     init_train_state,
     make_train_step,
-    refuse_bilateral_grid,
 )
 from qed_splatter_tpu_torch.engine.writer import MetricsWriter
 from qed_splatter_tpu_torch.metrics import (
@@ -147,10 +156,6 @@ def _refuse_unported(config: TrainerConfig) -> None:
     if config.num_data_shards * config.num_model_shards > 1:
         raise not_ported("num_data_shards / num_model_shards > 1", 8,
                          "parallel/*")
-    if config.vis == "viewer":
-        raise not_ported("vis='viewer'", 10, "the viewer")
-    if config.model.use_bilateral_grid:
-        raise refuse_bilateral_grid()
 
 
 class Trainer:
@@ -203,6 +208,15 @@ class Trainer:
         # resume step (multi-scene turns and resumes do not replay a prefix)
         self._reseed_sampling()
         self._apply_crash_policy()
+        self.viewer = None
+        if config.vis == "viewer":
+            from qed_splatter_tpu_torch.viewer import Viewer
+
+            self.viewer = Viewer(self.cfg, port=config.viewer_port,
+                                 device=self.device)
+            # the state the run starts from is viewable before step 1
+            self.viewer.update(self.state.params, self.state.step)
+            self.viewer.start()
 
     # ------------------------------------------------------------ setup
 
@@ -242,8 +256,11 @@ class Trainer:
         else:
             params = init_random(num_points=self.cfg.num_random,
                                  random_scale=self.cfg.random_scale, **common)
-        return init_train_state(params, self.optims,
-                                num_cameras=len(scene.frames))
+        # one camera delta and one colour grid per camera of the scene
+        return init_train_state(
+            params, self.optims, num_cameras=len(scene.frames),
+            use_bilateral_grid=self.cfg.use_bilateral_grid,
+            bilateral_grid_shape=self.cfg.bilateral_grid_shape)
 
     def _reseed_sampling(self) -> None:
         """The multi-step loop's camera queue from (seed, current step): at
@@ -435,13 +452,14 @@ class Trainer:
         new_cap = min(cap * 2, self.cfg.max_capacity)
         if new_cap in self._grow_refused:
             return False
+        t0 = time.perf_counter()
         pre = ckpt.copy_state(self.state, "cpu")
         print(f"Growing gaussian capacity {cap} -> {new_cap}")
         self.state = self._grown_state(self.state, new_cap)
         self._canary = (cap, new_cap, pre, cur, max_hw)
-        self.writer.write(self.state.step, {"capacity_before": cap,
-                                            "capacity_after": new_cap},
-                          prefix="grow")
+        self.writer.write(self.state.step, {
+            "capacity_before": cap, "capacity_after": new_cap,
+            "ms": (time.perf_counter() - t0) * 1e3}, prefix="grow")
         return True
 
     def _revert_growth(self, cur: int, err: Exception) -> None:
@@ -482,6 +500,7 @@ class Trainer:
         cfgt = self.config
         if (cur > self.cfg.warmup_length and cur % self.cfg.refine_every == 0
                 and cur >= self._densify_frozen_until):
+            t0 = time.perf_counter()
             grown = self._maybe_grow(cur, max_hw)
             try:
                 info = self._refine(cur, max_hw)
@@ -490,7 +509,8 @@ class Trainer:
                     raise
                 self._revert_growth(cur, e)
                 info = self._refine(cur, max_hw)
-            self.writer.write(cur, info._asdict(), prefix="refine")
+            self.writer.write(cur, {**info._asdict(), "ms": (
+                time.perf_counter() - t0) * 1e3}, prefix="refine")
         if cfgt.steps_per_eval_image and cur % cfgt.steps_per_eval_image == 0:
             self.eval_image(cur)
         if cfgt.steps_per_eval_batch and cur % cfgt.steps_per_eval_batch == 0:
@@ -622,6 +642,13 @@ class Trainer:
             self.cfg = dataclasses.replace(self.cfg, max_per_tile=k,
                                            small_tiles_per_gaussian=tpg)
 
+    def _viewer_gate(self) -> None:
+        """Block between dispatches while the viewer has training paused."""
+        if self.viewer is None:
+            return
+        while self.viewer.state.paused:
+            time.sleep(0.05)
+
     # ------------------------------------------------- multi-step dispatch
 
     def _dispatch_chunk(self) -> int:
@@ -710,6 +737,7 @@ class Trainer:
         t0 = time.perf_counter()
         step = start_step
         while step < total:
+            self._viewer_gate()
             n = min(chunk, total - step)
             d = self._downscale_factor(step)
             self._sync_bucket_cfg(d)
@@ -752,6 +780,8 @@ class Trainer:
                                 ds.width, ds.height, d)
             self._maybe_adapt_tpg(last.get("bbox_truncated"), d)
             self.writer.write(step, last, prefix="train")
+            if self.viewer is not None:
+                self.viewer.update(self.state.params, step, metrics=last)
             if (not bool(np.isfinite(marr["loss"]).all())
                     or not self._state_finite()):
                 step = self._handle_divergence(step)
@@ -793,6 +823,7 @@ class Trainer:
         # start + 14 (once, whatever a rollback does to the step)
         prof, traced = None, not cfgt.profile_dir
         while step < total:
+            self._viewer_gate()
             if not traced and step == start_step + 10:
                 prof, traced = self._start_profile(), True
             d = self._downscale_factor(step)
@@ -840,6 +871,8 @@ class Trainer:
             if cur % cfgt.log_every == 0:
                 host = {k: float(v) for k, v in metrics.items()}
                 self.writer.write(cur, host, prefix="train")
+                if self.viewer is not None:
+                    self.viewer.update(self.state.params, cur, metrics=host)
                 self._maybe_adapt_k(host.get("tile_overflow"),
                                     host.get("tile_max_count"),
                                     cam.width, cam.height, d)
@@ -888,12 +921,16 @@ class Trainer:
         return path
 
     def finalize(self, total: Optional[int] = None) -> None:
-        """End-of-training checkpoint (with both adaptive tables) and
-        ``splat.ply``."""
+        """End-of-training checkpoint (with both adaptive tables),
+        ``splat.ply`` and ``kernel_launches.json``."""
         self._save(self.run_dir / "ckpts",
                    total if total is not None else self.state.step)
         meta = ckpt.checkpoint_meta(self.run_dir / "ckpts")
         ckpt.export_ply(self.run_dir / "splat.ply", self.state.params, meta)
+        (self.run_dir / "kernel_launches.json").write_text(json.dumps({
+            k.symbol + "".join(k.defines): {
+                "launches": k.launches, "variants": k.variant_launches}
+            for k in qcuda.KERNELS if k.launches}))
 
     # -------------------------------------------------------------- eval
 

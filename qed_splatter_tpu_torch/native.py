@@ -1,9 +1,12 @@
-"""The host geometry core (``csrc/qedcore.cpp``), built and bound with ctypes
-(port of ``native.py``).
+"""The host core (``csrc/qedcore.cpp``), built and bound with ctypes (port
+of ``native.py``).
 
 Three entry points back the host-side pieces the reference delegated to
 Open3D: voxel downsampling (the init-pointcloud tool), nearest-neighbour
-distances (the point-cloud metrics) and depth backprojection.
+distances (the point-cloud metrics) and depth backprojection. Two more
+decode images where the reference calls PIL: :func:`png_unfilter` undoes
+the five PNG row filters, and :func:`jpeg_decode` decodes baseline JPEG as
+libjpeg does by default (the pixels PIL returns).
 
 The library is compiled at first use with
 ``g++ -O3 -fPIC -shared -std=c++17 -pthread`` (no ``-march=native``: the
@@ -12,8 +15,8 @@ build may be loaded on another host than the one that made it) into
 and moved into place with ``os.replace``, so processes that build at once
 never load half a file. There is no fallback: when ``g++`` is missing or the
 build or the load fails, the call raises and names the command and its
-output. The plain PyTorch versions (``ops/voxel.py``,
-``ops/knn.py::nn_distances``, ``ops/backproject.py``) are what the tests hold
+output. The plain versions (``ops/voxel.py``, ``ops/knn.py::nn_distances``,
+``ops/backproject.py``, ``data/png.py``'s row loops) are what the tests hold
 the core against; they are not substituted for it.
 
 Nothing is built or loaded at import.
@@ -97,6 +100,16 @@ def load() -> ctypes.CDLL:
     lib.qed_backproject.argtypes = [
         f32p, ctypes.c_int64, ctypes.c_int64, f32p, f32p, ctypes.c_float,
         ctypes.c_int64, f32p]
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i64 = ctypes.c_int64
+    lib.qed_png_unfilter.restype = i64
+    lib.qed_png_unfilter.argtypes = [u8p, i64, i64, i64, u8p]
+    for name in ("qed_jpeg_info", "qed_jpeg_decode"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_char_p, i64,
+                       ctypes.POINTER(i64) if name == "qed_jpeg_info"
+                       else u8p, ctypes.c_char_p, i64]
     _LIB = lib
     return lib
 
@@ -165,4 +178,43 @@ def backproject_native(depth: np.ndarray, K: np.ndarray,
     out = np.empty((-(-h // stride) * -(-w // stride), 3), np.float32)
     lib.qed_backproject(_fp(d), h, w, _fp(Kc), _fp(c),
                         ctypes.c_float(depth_max), stride, _fp(out))
+    return out
+
+
+def _u8p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def png_unfilter(data: np.ndarray, height: int, stride: int,
+                 bpp: int) -> Tuple[np.ndarray, int]:
+    """Undo the PNG filters of ``height`` scanlines (``stride`` bytes after
+    each row's filter byte): ([height, stride] uint8, -1), or the index of
+    the first row whose filter byte is unknown in place of -1."""
+    lib = load()
+    d = np.ascontiguousarray(data, dtype=np.uint8)
+    if d.size != height * (stride + 1):
+        raise ValueError(f"{d.size} bytes for {height} rows of {stride}")
+    out = np.empty((height, stride), np.uint8)
+    bad = lib.qed_png_unfilter(_u8p(d), height, stride, bpp, _u8p(out))
+    return out, int(bad)
+
+
+class JpegDecodeError(ValueError):
+    """A JPEG the core does not decode (the message names the feature)."""
+
+
+def jpeg_decode(data: bytes) -> np.ndarray:
+    """A baseline JPEG's samples as libjpeg's default decompression gives
+    them: [H, W] uint8 for gray, [H, W, 3] RGB otherwise. Raises
+    :class:`JpegDecodeError` for what the core refuses (progressive,
+    arithmetic, 12-bit, lossless, CMYK/YCCK, sampling factors above 2)."""
+    lib = load()
+    err = ctypes.create_string_buffer(256)
+    info = (ctypes.c_int64 * 3)()
+    if lib.qed_jpeg_info(data, len(data), info, err, len(err)):
+        raise JpegDecodeError(err.value.decode())
+    w, h, ch = info
+    out = np.empty((h, w) if ch == 1 else (h, w, 3), np.uint8)
+    if lib.qed_jpeg_decode(data, len(data), _u8p(out), err, len(err)):
+        raise JpegDecodeError(err.value.decode())
     return out

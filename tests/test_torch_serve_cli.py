@@ -273,10 +273,12 @@ def test_writer_backends_call_their_libraries(tmp_path, monkeypatch,
         "loss"] == 1.0
 
 
-def test_view_is_still_refused():
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, 'Next, in order' item 10, "
-                             "'the viewer'"):
-        cli.main(["view", "--load-dir", "x"])
+def test_view_is_still_refused(tmp_path, capsys):
+    """``view`` was refused until ROADMAP item 10 was ported: now a missing
+    checkpoint is an error (rc 2, named) and every subcommand exists
+    (tests/test_torch_viewer.py serves frames)."""
+    assert cli.main(["view", "--load-dir", str(tmp_path / "x"),
+                     "--device", "cpu"]) == 2
+    assert "no checkpoint" in capsys.readouterr().err
     assert set(cli.COMMANDS) == {"train", "train-multi", "eval", "init-pc",
-                                 "export", "render", "eval-pc"}
+                                 "export", "render", "eval-pc", "view"}

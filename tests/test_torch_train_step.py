@@ -238,11 +238,24 @@ def test_train_step_refuses_unported(what):
                                device="cpu")
         assert step.cfg.mixed_precision
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_step(cfg, optims, 32, 32, has_depth=True, device="cpu")
-    if what == "use_bilateral_grid":
-        pts = np.zeros((4, 3), np.float32)
-        pts[:, 0] = np.arange(4)
-        params = tinit_points(pts, None, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            init_train_state(params, optims, 1, use_bilateral_grid=True)
+    # use_bilateral_grid, ported since (tests/test_torch_bilateral_grid.py
+    # holds it to JAX): the step builds, the state has identity grids, and
+    # a step applies them and adds the TV term
+    step = make_train_step(cfg, optims, 32, 32, has_depth=True,
+                           device="cpu")
+    pts = np.zeros((4, 3), np.float32)
+    pts[:, 0] = np.arange(4) * 0.1
+    pts[:, 2] = 3.0
+    params = tinit_points(pts, None, device="cpu")
+    state = init_train_state(params, optims, 2, use_bilateral_grid=True)
+    assert state.bilateral_grids.shape == (2, 16, 16, 8, 12)
+    f = 0.8 * 32
+    batch = dict(c2w=orbit_c2w_opengl(3.0, 0.0, 0.0, (0, 0, 3.0)),
+                 K=np.array([[f, 0, 16], [0, f, 16], [0, 0, 1]], np.float32),
+                 cam_idx=1, rgb=np.full((32, 32, 3), 0.5, np.float32),
+                 depth=np.full((32, 32, 1), 3.0, np.float32))
+    state, metrics = step(state, batch, torch.Generator().manual_seed(0))
+    assert float(metrics["tv_loss"]) == 0.0     # identity grids are flat
+    assert int(state.bilateral_grid_state["count"]) == 1
+    assert float(state.bilateral_grid_state["mu"][1].abs().max()) > 0
+    assert float(state.bilateral_grid_state["mu"][0].abs().max()) == 0

@@ -7,6 +7,7 @@ and the refusal of what the port does not have."""
 
 import dataclasses
 import json
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -267,14 +268,14 @@ def test_growth_canary_reverts_on_oom(dataset, tmp_path, monkeypatch,
 
 # ROADMAP items done since their options were refused here: 7 (the
 # mixed_precision kernels), 12 (profile_dir, with the port's bench), 1
-# (multi-step dispatch), 2 (the attempt journal and supervise) and 9 (the
-# writer backends)
-PORTED_ITEMS = (7, 12, 1, 2, 9)
+# (multi-step dispatch), 2 (the attempt journal and supervise), 9 (the
+# writer backends), 6 (the bilateral grid) and 10 (the viewer)
+PORTED_ITEMS = (7, 12, 1, 2, 9, 6, 10)
 
 
 @pytest.mark.parametrize("kw,item", [
     (dict(steps_per_dispatch=4), 1), (dict(supervise=True), 2),
-    (dict(num_data_shards=2), 8), (dict(vis="viewer"), 10),
+    (dict(num_data_shards=2), 8), (dict(vis="viewer", viewer_port=0), 10),
     (dict(mixed_precision=True), 7), (dict(vis="tensorboard"), 9),
     (dict(vis="wandb"), 9), (dict(vis="comet"), 9),
     (dict(profile_dir="trace"), 12),
@@ -283,8 +284,9 @@ def test_trainer_refuses_unported(dataset, tmp_path, kw, item):
     if item in PORTED_ITEMS:
         # ported since: the option builds a trainer and takes effect (its
         # runs are held in test_profile_dir_writes_a_trace,
-        # tests/test_torch_mixed_precision, test_torch_scan_runner and
-        # test_torch_crash_recovery)
+        # tests/test_torch_mixed_precision, test_torch_scan_runner,
+        # test_torch_crash_recovery, test_torch_bilateral_grid and
+        # test_torch_viewer)
         t = Trainer(_config(dataset, tmp_path, **kw), device="cpu")
         assert t.config.mixed_precision == t.cfg.mixed_precision
         if item == 1:
@@ -301,6 +303,23 @@ def test_trainer_refuses_unported(dataset, tmp_path, kw, item):
             t.writer.write(1, {"loss": 0.5}, prefix="train")
             t.writer.close()
             assert '"loss": 0.5' in (t.run_dir / "metrics.jsonl").read_text()
+        if item == 6:
+            g = t.state.bilateral_grids
+            assert g.shape == (t.state.camera_opt.shape[0], 16, 16, 8, 12)
+            assert int(t.state.bilateral_grid_state["count"]) == 0
+        if item == 10:
+            # the viewer serves from construction on
+            import urllib.request
+
+            try:
+                st = json.loads(urllib.request.urlopen(
+                    f"http://127.0.0.1:{t.viewer.port}/status",
+                    timeout=30).read())
+                assert st["step"] == 0 and not st["paused"]
+            finally:
+                t.viewer.stop()
+        else:
+            assert t.viewer is None
         return
     name = kw.get("vis") or ""
     with pytest.raises(NotImplementedError,
@@ -371,12 +390,30 @@ def test_cli_train_on_the_cpu(dataset, tmp_path):
     assert (tmp_path / "qed-splatter" / "splat.ply").exists()
     assert ckpt.checkpoint_meta(tmp_path / "qed-splatter" / "ckpts")[
         "step"] == 3
-    # the subcommands ported since (tests/test_torch_serve_cli.py and
-    # tests/test_torch_init_pc.py) want their flags; view is still refused
+    # the subcommands ported since (tests/test_torch_serve_cli.py,
+    # tests/test_torch_init_pc.py and tests/test_torch_viewer.py) want
+    # their flags
     for cmd in ("eval", "init-pc"):
         assert main([cmd]) == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        main(["view"])
+    with pytest.raises(SystemExit):
+        main(["view"])             # argparse: --load-dir is required
+    # view starts a server on the checkpoint and stops when told to
+    import threading
+
+    stop, started = threading.Event(), []
+    rc = []
+    th = threading.Thread(target=lambda: rc.append(main(
+        ["view", "--load-dir", str(tmp_path / "qed-splatter" / "ckpts"),
+         "--port", "0", "--device", "cpu"], stop=stop,
+        on_start=started.append)))
+    th.start()
+    for _ in range(6000):
+        if started:
+            break
+        time.sleep(0.05)
+    stop.set()
+    th.join(30)
+    assert rc == [0] and started and not started[0].thread.is_alive()
     assert main(["nonsense"]) == 2
     # train-multi is ported: two names for the one scene
     for name in ("a", "b"):
