@@ -3393,14 +3393,52 @@ def bilateral_config(root, out, seed, grid):
                          model=model, seed=seed, steps_per_dispatch=0)
 
 
-def phase_bilateral(seed, root, work):
-    """The room at 1296x840 with ``use_bilateral_grid``: 200 steps on the
-    graph path with and without the grid, then from the trained state a
-    chunk of 10 steps as a CUDA graph against the per-step loop (losses and
-    grids), and a checkpoint round trip of the grids."""
-    from qed_splatter_tpu_torch.data.dataset import FullImageDatamanager
+def bilateral_chunk(t, perm, label):
+    """A chunk of ``len(perm)`` steps from ``t.state`` as a CUDA graph
+    against the per-step loop (twice, for the eager spread): losses within
+    max(1e-4, 2 * spread), grids within max(1e-5, 2 * spread)."""
     from qed_splatter_tpu_torch.engine import checkpoint as ckpt
     from qed_splatter_tpu_torch.engine.scan_runner import make_scan_steps
+
+    n = len(perm)
+    runner = make_scan_steps(t.cfg, t.optims, t._device_dataset(1), n)
+    bgs = t._backgrounds(t.state.step, n)
+    state0 = ckpt.copy_state(t.state, "cuda")
+    runner(ckpt.copy_state(state0, "cuda"), perm, bgs)   # the capture
+    e1, losses1, eager_ms = eager_chunk(runner, ckpt.copy_state(
+        state0, "cuda"), perm, bgs)
+    e2, losses2, _ = eager_chunk(runner, ckpt.copy_state(state0, "cuda"),
+                                 perm, bgs)
+    g, rows, graph_ms_ = graph_chunk(runner, ckpt.copy_state(state0, "cuda"),
+                                     perm, bgs)
+    spread = max(abs(a - b) / abs(b) for a, b in zip(losses1, losses2))
+    err = float(max(abs(a - b) / abs(b)
+                    for a, b in zip(rows["loss"], losses1)))
+    g_err = float((g.bilateral_grids - e1.bilateral_grids).abs().max())
+    g_spread = float((e2.bilateral_grids - e1.bilateral_grids).abs().max())
+    moved = float((e1.bilateral_grids - state0.bilateral_grids).abs().max())
+    bar, g_bar = max(1e-4, 2 * spread), max(1e-5, 2 * g_spread)
+    print(f"  a chunk of {n} {label}: per-step loss graph against eager "
+          f"{err:.3e} (eager against eager {spread:.3e}, bar {bar:.1e}); "
+          f"grids graph against eager {g_err:.3e} (eager against eager "
+          f"{g_spread:.3e}, bar {g_bar:.1e}; the grids moved {moved:.3e}); "
+          f"graph {graph_ms_:.3f} ms per step, eager {eager_ms:.3f}")
+    check(err <= bar, f"bilateral chunk {label}: losses within the bar")
+    check(g_err <= g_bar, f"bilateral chunk {label}: grids within the bar")
+    check("tv_loss" in rows, "the chunk's rows carry tv_loss")
+    return {"loss_rel_err": err, "eager_spread": float(spread),
+            "grid_err": g_err, "grid_spread": g_spread, "grid_moved": moved,
+            "graph_ms_per_step": graph_ms_, "eager_ms_per_step": eager_ms}
+
+
+def phase_bilateral(seed, root, work):
+    """The room at 1296x840 with ``use_bilateral_grid``: a chunk of 10
+    steps as a CUDA graph against the per-step loop (losses and grids) from
+    the seed state (zero moments, as every run's first chunk), 200 steps on
+    the graph path with and without the grid, the same chunk check from
+    the trained state, and a checkpoint round trip of the grids."""
+    from qed_splatter_tpu_torch.data.dataset import FullImageDatamanager
+    from qed_splatter_tpu_torch.engine import checkpoint as ckpt
     from qed_splatter_tpu_torch.engine.trainer import Trainer
     from qed_splatter_tpu_torch.models.bilateral_grid import \
         init_bilateral_grids
@@ -3415,6 +3453,14 @@ def phase_bilateral(seed, root, work):
                                                True).data, seed=seed)
     t = Trainer(bilateral_config(str(root), str(work / "bilateral"), seed,
                                  True), datamanager=dm)
+    # from zero moments a first Adam update is lr * sign(g), which the
+    # rounding of grid_sample's atomic backward can flip for a near-zero
+    # gradient; the frames are those the run's first chunk trains on (put
+    # back at the head of the trainer's queue)
+    first = t._next_perm(BILATERAL_CHUNK)
+    t._queue = first + t._queue
+    out["chunk_zero_moments"] = bilateral_chunk(t, first, "from zero moments")
+    torch.cuda.empty_cache()
     ms = {}
     for grid in (True, False):
         tt = t if grid else Trainer(bilateral_config(
@@ -3441,43 +3487,10 @@ def phase_bilateral(seed, root, work):
         print(f"  {BILATERAL_STEPS} steps on the graph path, grid {grid}: "
               f"median {ms[grid]:.3f} ms per step over "
               f"{len(record['ms'][W])} chunks; launches {launches}")
-    # a chunk as a graph against the per-step loop, from the trained state:
-    # its grids' second moments hold 200 steps of gradients, so rounding
-    # in the atomics of grid_sample's backward stays rounding (from zero
-    # moments the first Adam updates are lr * sign(g), which a near-zero
-    # gradient's rounding can flip)
-    n = BILATERAL_CHUNK
-    runner = make_scan_steps(t.cfg, t.optims, t._device_dataset(1), n)
-    perm = t._next_perm(n)
-    bgs = t._backgrounds(t.state.step, n)
-    state0 = ckpt.copy_state(t.state, "cuda")
-    runner(ckpt.copy_state(state0, "cuda"), perm, bgs)   # the capture
-    e1, losses1, eager_ms = eager_chunk(runner, ckpt.copy_state(
-        state0, "cuda"), perm, bgs)
-    e2, losses2, _ = eager_chunk(runner, ckpt.copy_state(state0, "cuda"),
-                                 perm, bgs)
-    g, rows, graph_ms_ = graph_chunk(runner, ckpt.copy_state(state0, "cuda"),
-                                     perm, bgs)
-    spread = max(abs(a - b) / abs(b) for a, b in zip(losses1, losses2))
-    err = float(max(abs(a - b) / abs(b)
-                    for a, b in zip(rows["loss"], losses1)))
-    g_err = float((g.bilateral_grids - e1.bilateral_grids).abs().max())
-    g_spread = float((e2.bilateral_grids - e1.bilateral_grids).abs().max())
-    moved = float((e1.bilateral_grids - state0.bilateral_grids).abs().max())
-    bar, g_bar = max(1e-4, 2 * spread), max(1e-5, 2 * g_spread)
-    print(f"  a chunk of {n}: per-step loss graph against eager {err:.3e} "
-          f"(eager against eager {spread:.3e}, bar {bar:.1e}); grids graph "
-          f"against eager {g_err:.3e} (eager against eager {g_spread:.3e}, "
-          f"bar {g_bar:.1e}; the grids moved {moved:.3e}); graph "
-          f"{graph_ms_:.3f} ms per step, eager {eager_ms:.3f}")
-    check(err <= bar, "bilateral chunk: losses within the bar")
-    check(g_err <= g_bar, "bilateral chunk: grids within the bar")
-    check("tv_loss" in rows, "the chunk's rows carry tv_loss")
-    out["chunk"] = {"loss_rel_err": err, "eager_spread": spread,
-                    "grid_err": g_err, "grid_spread": g_spread,
-                    "graph_ms_per_step": graph_ms_,
-                    "eager_ms_per_step": eager_ms}
-    del runner, state0, e1, e2, g
+    # the same from the trained state: 200 steps of gradients in the
+    # grids' second moments
+    out["chunk"] = bilateral_chunk(t, t._next_perm(BILATERAL_CHUNK),
+                                   "from the trained state")
 
     ident = init_bilateral_grids(t.state.bilateral_grids.shape[0],
                                  device="cuda")
@@ -3681,8 +3694,8 @@ def phase_viewer(seed, root, work):
 
     # cli view on the run's checkpoint
     stop, started, rc = threading.Event(), [], []
-    th = threading.Thread(target=lambda: rc.append(cli.main(
-        ["view", "--load-dir", str(t.run_dir / "ckpts"), "--port", "0"],
+    th = threading.Thread(target=lambda: rc.append(cli.cmd_view(
+        ["--load-dir", str(t.run_dir / "ckpts"), "--port", "0"],
         stop=stop, on_start=started.append)))
     th.start()
     try:

@@ -506,9 +506,7 @@ COMMANDS = {"train": cmd_train, "train-multi": cmd_train_multi,
             "render": cmd_render, "eval-pc": cmd_eval_pc, "view": cmd_view}
 
 
-def main(argv: Optional[list] = None,
-         stop: Optional[threading.Event] = None, on_start=None) -> int:
-    """Run one subcommand; ``stop`` and ``on_start`` go to ``view``."""
+def main(argv: Optional[list] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m qed_splatter_tpu_torch.cli "
@@ -519,8 +517,6 @@ def main(argv: Optional[list] = None,
         print(f"unknown command: {cmd}; choose from {list(COMMANDS)}",
               file=sys.stderr)
         return 2
-    if cmd == "view":
-        return cmd_view(argv[1:], stop=stop, on_start=on_start)
     return COMMANDS[cmd](argv[1:])
 
 

@@ -264,6 +264,7 @@ struct Huffman {
   // value; look[] decodes codes of up to 9 bits at once
   int32_t maxcode[18];
   int32_t valoffset[17];
+  int nvals = 0;
   uint8_t vals[256];
   uint16_t look[1 << 9];  // (length << 8) | value, 0 when longer than 9 bits
 };
@@ -352,7 +353,9 @@ struct Jpeg {
     if (l > 16) return 0;  // corrupt data: libjpeg substitutes zero too
     bits <<= l;
     nbits -= l;
-    return t.vals[t.valoffset[l] + code];
+    int idx = t.valoffset[l] + code;
+    if (idx < 0 || idx >= t.nvals) fail("corrupt JPEG data (Huffman code)");
+    return t.vals[idx];
   }
   static int extend(int v, int s) {
     return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
@@ -372,8 +375,12 @@ struct Jpeg {
       for (int i = 0; i < total; ++i) t.vals[i] = byte();
       std::fill(t.look, t.look + (1 << 9), 0);
       int code = 0, k = 0;
+      t.nvals = total;
       for (int l = 1; l <= 16; ++l) {
         t.valoffset[l] = k - code;
+        // more codes than l bits hold (or the all-ones code, which T.81
+        // reserves): jdhuff.c's JERR_BAD_HUFF_TABLE
+        if (code + counts[l] >= (1 << l)) fail("bad Huffman table");
         for (int i = 0; i < counts[l]; ++i, ++k, ++code) {
           if (l <= 9) {
             int shift = 9 - l;
@@ -551,11 +558,13 @@ struct Jpeg {
       ++pos;
   }
 
-  void parse() {
+  // Walk the markers and decode the scans; with `header_only`, stop after
+  // the frame header (the tables before it are read and checked as well).
+  void parse(bool header_only = false) {
     if (n < 4 || p[0] != 0xFF || p[1] != 0xD8) fail("not a JPEG file");
     pos = 2;
     bool scanned = false;
-    while (true) {
+    while (!(header_only && frame)) {
       if (pos >= n) {
         if (scanned) return;  // a missing EOI, as libjpeg tolerates
         fail("truncated JPEG");
@@ -860,24 +869,8 @@ int qed_jpeg_info(const uint8_t* data, int64_t n, int64_t* out, char* err,
                   int64_t err_len) {
   try {
     Jpeg j{data, size_t(n)};
-    // parse up to the frame header only
-    if (n < 4 || data[0] != 0xFF || data[1] != 0xD8) j.fail("not a JPEG file");
-    j.pos = 2;
-    while (!j.frame) {
-      int b = j.byte();
-      if (b != 0xFF) continue;
-      int marker = j.byte();
-      while (marker == 0xFF) marker = j.byte();
-      if (marker == 0xD9) j.fail("JPEG without a frame");
-      if ((marker >= 0xD0 && marker <= 0xD7) || marker == 0x01) continue;
-      int len = j.u16() - 2;
-      if (len < 0 || j.pos + len > j.n) j.fail("truncated JPEG marker segment");
-      size_t next = j.pos + len;
-      if (marker == 0xCC) j.fail("arithmetic-coded JPEG (DAC) is not supported");
-      if (marker >= 0xC0 && marker <= 0xCF && marker != 0xC4 && marker != 0xC8)
-        j.start_of_frame(marker, len);
-      j.pos = next;
-    }
+    j.parse(/*header_only=*/true);
+    if (!j.frame) j.fail("JPEG without a frame");
     out[0] = j.width;
     out[1] = j.height;
     out[2] = j.ncomp;

@@ -203,6 +203,31 @@ def test_jpeg_refusals_name_the_file(tmp_path):
         read_image(tmp_path / "x.gif")
 
 
+@pytest.mark.parametrize("count", [2, 3, 255])
+def test_jpeg_overfull_huffman_table_is_refused(tmp_path, count):
+    """A DHT that declares more codes of one length than the length holds
+    (two 1-bit codes use the all-ones code, which T.81 reserves), put in
+    force for the scan, is refused as libjpeg refuses it
+    (JERR_BAD_HUFF_TABLE), before any code table is written: a JpegError
+    naming the file, and PIL fails too."""
+    base = _jpeg(_textured(24, 32, 3), quality=80, subsampling=0)
+    counts = bytes([count] + [0] * 15)
+    body = b"\x00" + counts + bytes(i % 12 for i in range(count))  # DC 0
+    dht = b"\xff\xc4" + (len(body) + 2).to_bytes(2, "big") + body
+    pos = 2                     # walk the markers to the scan header
+    while base[pos + 1] != 0xDA:
+        pos += 2 + int.from_bytes(base[pos + 2:pos + 4], "big")
+    data = base[:pos] + dht + base[pos:]
+    p = tmp_path / f"dht{count}.jpg"
+    p.write_bytes(data)
+    with pytest.raises(JpegError, match=f"bad Huffman table.*dht{count}.jpg"):
+        read_image(p)
+    with pytest.raises(ImageError):
+        decode_image(data)
+    with pytest.raises(OSError):
+        Image.open(io.BytesIO(data)).load()
+
+
 def test_jpeg_dataset_equals_jax(tmp_path):
     """A dataset whose frames are JPEGs (4:2:0, quality 90, as cameras
     write them): the port's ``load_image_uint8`` (with and without the

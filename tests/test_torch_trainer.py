@@ -24,7 +24,7 @@ from qed_splatter_tpu.engine.trainer import Trainer as JTrainer
 from qed_splatter_tpu.models.gaussians import init_random as jinit_random
 from qed_splatter_tpu_torch import metrics
 from qed_splatter_tpu_torch import testing as ttesting
-from qed_splatter_tpu_torch.cli import build_trainer_config, main
+from qed_splatter_tpu_torch.cli import build_trainer_config, cmd_view, main
 from qed_splatter_tpu_torch.configs import DataConfig, ModelConfig, \
     TrainerConfig
 from qed_splatter_tpu_torch.engine import checkpoint as ckpt
@@ -402,8 +402,8 @@ def test_cli_train_on_the_cpu(dataset, tmp_path):
 
     stop, started = threading.Event(), []
     rc = []
-    th = threading.Thread(target=lambda: rc.append(main(
-        ["view", "--load-dir", str(tmp_path / "qed-splatter" / "ckpts"),
+    th = threading.Thread(target=lambda: rc.append(cmd_view(
+        ["--load-dir", str(tmp_path / "qed-splatter" / "ckpts"),
          "--port", "0", "--device", "cpu"], stop=stop,
         on_start=started.append)))
     th.start()

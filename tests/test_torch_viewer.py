@@ -164,8 +164,8 @@ def test_cli_view_serves_a_frame(trained):
     _, ckpts = trained
     stop, started = threading.Event(), []
     rc = []
-    th = threading.Thread(target=lambda: rc.append(cli.main(
-        ["view", "--load-dir", str(ckpts), "--port", "0", "--device", "cpu"],
+    th = threading.Thread(target=lambda: rc.append(cli.cmd_view(
+        ["--load-dir", str(ckpts), "--port", "0", "--device", "cpu"],
         stop=stop, on_start=started.append)))
     th.start()
     try:
