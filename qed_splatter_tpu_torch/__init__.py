@@ -27,10 +27,3 @@ def resolve_device(device) -> torch.device:
         )
     return dev
 
-
-def not_ported(what: str, item: int, title: str) -> NotImplementedError:
-    """The error for a feature of the JAX package the port does not have
-    yet, naming its item in ROADMAP.md's queue."""
-    return NotImplementedError(
-        f"{what} is not ported; see ROADMAP.md, 'Next, in order' item "
-        f"{item}, '{title}'")

@@ -21,8 +21,13 @@ Every field of the config dataclasses is a flag, as in the JAX package's
 booleans ``--x`` / ``--no-x``, Literal types become choices.
 ``--device`` (default ``cuda``) picks where a command runs; on the GPU
 ``train`` holds the device lock (``utils/chiplock.py``) for its life.
+``train --num-data-shards D --num-model-shards M`` (D x M > 1) starts D x M
+ranks on the host (``parallel/launch.py``; under ``torchrun`` it joins
+torchrun's job instead); the launching process takes the lock once for
+all of them. With one card the ranks share it over gloo.
 ``--supervise`` runs the training in a child process and restarts it from
-the run's latest checkpoint when it dies (only the child takes the lock).
+the run's latest checkpoint when it dies (only the child takes the lock;
+under a mesh the child is the launcher, and any rank that dies ends it).
 ``eval-pc`` runs on the host core (``native.py``). ``view`` serves the live
 viewer (``viewer.py``) over a checkpoint until Ctrl-C.
 """
@@ -136,10 +141,52 @@ def cmd_train(argv) -> int:
         return 2
     if cfg.supervise:
         return _supervise_train(argv, cfg)
-    # one client on the GPU at a time (a CPU run takes no lock)
-    acquire_chip_lock("qed train", device=device)
+    ranks = cfg.num_data_shards * cfg.num_model_shards
+    if ranks > 1 and "WORLD_SIZE" not in os.environ:
+        # the launcher holds the lock for all its ranks (one flock: a
+        # rank's own would find the launcher's and fail)
+        acquire_chip_lock("qed train", device=device)
+        return _launch_ranks(argv, ranks, device)
+    # one client on the GPU at a time (a CPU run takes no lock; in a
+    # torchrun job, local rank 0 takes it for the host)
+    if os.environ.get("LOCAL_RANK", "0") == "0":
+        acquire_chip_lock("qed train", device=device)
     Trainer(cfg, device=device).train()
     return 0
+
+
+def _launch_ranks(argv, ranks: int, device: str) -> int:
+    """``ranks`` spawned processes on this host, each one rank of the
+    mesh running :func:`train_rank`; the kernels are built once, here,
+    before they start. A rank that fails ends the job with its traceback
+    (``parallel/launch.py``)."""
+    from qed_splatter_tpu_torch.parallel.launch import free_port, run_rank, \
+        spawn
+
+    if device.startswith("cuda"):
+        from qed_splatter_tpu_torch import cuda as qcuda
+
+        qcuda.build(qcuda.sources())
+    spawn(run_rank, ranks, (train_rank, ranks, free_port(), (argv,)))
+    return 0
+
+
+def train_rank(argv) -> None:
+    """One rank of a ``train`` job the launcher started: the trainer on
+    its rank's share of the host's CPU threads; takes no lock."""
+    import torch
+    import torch.distributed as dist
+
+    from qed_splatter_tpu_torch.engine.trainer import Trainer
+
+    cfg, device = build_trainer_config(argv)
+    world = int(os.environ["WORLD_SIZE"])
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    try:
+        Trainer(cfg, device=device).train()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _supervise_train(argv, cfg) -> int:

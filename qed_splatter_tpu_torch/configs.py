@@ -22,8 +22,13 @@ keep their names and defaults; their meaning in the port:
   loop; ``journal_retry``: the crash policy's amnesty
   (``engine/journal.py``).
 - ``TrainerConfig.viewer_port``: the port of the viewer's HTTP server with
-  ``vis="viewer"`` (0 picks a free one); ``shard_views_by_process``: no
-  effect, sharding raises.
+  ``vis="viewer"`` (0 picks a free one).
+- ``TrainerConfig.num_data_shards`` / ``num_model_shards``: the mesh of
+  ``torch.distributed`` ranks (``parallel/mesh.py``; ``cli train`` starts
+  D x M ranks on the host, or joins a ``torchrun`` job);
+  ``shard_views_by_process``: each host trains on every host-count-th
+  camera, keyed on the host (torchrun's ``GROUP_RANK``), not the rank: a
+  JAX process is a host, and the ranks of one host draw the same cameras.
 """
 
 from __future__ import annotations

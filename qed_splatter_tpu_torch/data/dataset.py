@@ -66,7 +66,10 @@ class FullImageDatamanager:
     """Caches every train/eval image host-side; serves one camera per step.
 
     ``next_train(step)`` draws cameras without replacement from epoch
-    permutations of the training cameras.
+    permutations of the training cameras; ``next_train_batch`` draws
+    several (view parallelism). ``process_count`` > 1 keeps every
+    ``process_count``-th training camera from ``process_index`` on (the
+    trainer passes the host's index with ``shard_views_by_process``).
     """
 
     def __init__(self, cfg: DataConfig, scene: Optional[ParsedScene] = None,
@@ -134,11 +137,22 @@ class FullImageDatamanager:
         self._cache[idx] = item
         return item
 
-    def next_train(self, step: int) -> Dict:
+    def _next_index(self) -> int:
         if not self._perm:
             self._perm = list(self.rng.permutation(self.train_indices))
-        idx = int(self._perm.pop())
-        return self._load(idx)
+        return int(self._perm.pop())
+
+    def next_train(self, step: int) -> Dict:
+        return self._load(self._next_index())
+
+    def next_train_batch(self, step: int, n: int,
+                         keep: Optional[slice] = None) -> List[Dict]:
+        """``n`` draws of :meth:`next_train` (the cameras of one
+        view-parallel step); only those in ``keep`` (a slice of the ``n``,
+        default all) are loaded and returned. Every caller with the same
+        seed draws the same cameras in the same order."""
+        ids = [self._next_index() for _ in range(n)]
+        return [self._load(i) for i in ids[keep or slice(None)]]
 
     def eval_items(self):
         for idx in self.scene.eval_indices:

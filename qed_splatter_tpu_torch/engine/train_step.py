@@ -103,8 +103,11 @@ def init_train_state(params: GaussianParams, optims: GroupOptimizers,
     )
 
 
-def from_jax_train_state(d: Dict, device="cuda") -> TrainState:
-    """A :class:`TrainState` from plain numpy dicts of a JAX ``TrainState``:
+def from_jax_train_state(d: Dict, device="cuda",
+                         mesh=None) -> TrainState:
+    """A :class:`TrainState` from plain numpy dicts of a JAX ``TrainState``
+    (with a ``parallel.mesh.Mesh``, this rank's rows of it, on the mesh's
+    device: a JAX sharded step's global arrays carried to each rank):
 
     ``{"params": {field: array}, "opt_state": {group: {"count", "mu",
     "nu"}}, "camera_opt": array, "camera_opt_state": {"count", "mu", "nu"},
@@ -112,7 +115,7 @@ def from_jax_train_state(d: Dict, device="cuda") -> TrainState:
     and, when the grid is on, ``"bilateral_grids"`` and
     ``"bilateral_grid_state"`` ({"count", "mu", "nu"}) (the Adam count of a
     group is its ``ScaleByAdamState.count``)."""
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
 
     def t(x):
         return torch.tensor(np.asarray(x), device=dev)
@@ -121,7 +124,7 @@ def from_jax_train_state(d: Dict, device="cuda") -> TrainState:
         return {"count": t(np.asarray(s["count"], np.int32)),
                 "mu": t(s["mu"]), "nu": t(s["nu"])}
 
-    return TrainState(
+    state = TrainState(
         params=GaussianParams(**{f: t(d["params"][f]) for f in FIELDS}),
         opt_state={g: adam(d["opt_state"][g]) for g in GROUPS},
         camera_opt=t(d["camera_opt"]),
@@ -134,6 +137,11 @@ def from_jax_train_state(d: Dict, device="cuda") -> TrainState:
                               if d.get("bilateral_grid_state") is not None
                               else None),
     )
+    if mesh is None:
+        return state
+    from qed_splatter_tpu_torch.parallel.dp import shard_state
+
+    return shard_state(state, mesh)
 
 
 @dataclasses.dataclass

@@ -63,10 +63,24 @@ datamanager's.
 (``viewer.py``) on ``viewer_port``: it gets a snapshot of the params and
 the metrics at every log, and its pause holds the loop between dispatches
 (between chunks on the graph path). ``use_bilateral_grid`` trains one
-colour grid per camera. Not ported, refused with
-:class:`NotImplementedError` naming its ROADMAP item: more than one data or
-model shard. ``TrainerConfig.mixed_precision`` turns on the model's (the
-bf16 operand compositing kernels), as in the JAX trainer.
+colour grid per camera. ``TrainerConfig.mixed_precision`` turns on the
+model's (the bf16 operand compositing kernels), as in the JAX trainer.
+
+**The mesh** (``num_data_shards`` D x ``num_model_shards`` M > 1; the JAX
+trainer's): one trainer a rank of a ``torch.distributed`` job of D * M
+ranks (``cli train`` starts them, or ``torchrun``), ``parallel/mesh.py``.
+Each step draws D cameras (``next_train_batch``, the same on every rank)
+and runs ``parallel/dp.py``'s sharded step on the rank's camera and its
+block of the gaussian rows, on the per-step loop (no graph: ``_use_scan``
+is False, as in JAX). Refine, growth and the opacity reset run on the
+gathered state, the same on every rank, which then keeps its rows again.
+Rank 0 alone writes the metrics, the journal, checkpoints (the gathered
+state, the single-device format) and runs eval and the viewer on the
+gathered params; the other ranks wait at a barrier. The sharded step
+returns no ``bbox_truncated``, so the pair budget never adapts under a
+mesh, as in the JAX trainer. An out-of-memory error after a growth is not
+reverted under a mesh (the rank dies and the job with it; the journal
+refuses that capacity on the restart).
 """
 
 from __future__ import annotations
@@ -83,7 +97,7 @@ import numpy as np
 import torch
 
 from qed_splatter_tpu_torch import cuda as qcuda
-from qed_splatter_tpu_torch import not_ported, resolve_device
+from qed_splatter_tpu_torch import resolve_device
 from qed_splatter_tpu_torch.configs import TrainerConfig
 from qed_splatter_tpu_torch.data.dataset import FullImageDatamanager
 from qed_splatter_tpu_torch.engine import checkpoint as ckpt
@@ -120,6 +134,16 @@ from qed_splatter_tpu_torch.models.splatfacto import (
     render,
     total_loss,
 )
+from qed_splatter_tpu_torch.parallel.dp import (
+    gather_state,
+    make_sharded_train_step,
+    shard_state,
+)
+from qed_splatter_tpu_torch.parallel.mesh import (
+    host_of_job,
+    init_distributed,
+    make_mesh,
+)
 
 
 def downscale_image(img: np.ndarray, d: int) -> np.ndarray:
@@ -152,10 +176,14 @@ DEVICE_LOST = ("illegal memory access", "unspecified launch failure",
                "device-side assert", "an illegal instruction")
 
 
-def _refuse_unported(config: TrainerConfig) -> None:
-    if config.num_data_shards * config.num_model_shards > 1:
-        raise not_ported("num_data_shards / num_model_shards > 1", 8,
-                         "parallel/*")
+class _NoWriter:
+    """The metrics writer of a rank other than 0: writes nothing."""
+
+    def write(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 class Trainer:
@@ -163,21 +191,30 @@ class Trainer:
                  datamanager: Optional[FullImageDatamanager] = None,
                  optims: Optional[GroupOptimizers] = None,
                  device="cuda"):
-        _refuse_unported(config)
         if not config.data.data and datamanager is None:
             raise ValueError("TrainerConfig.data.data is required")
         self.config = config
         self.cfg = self._model_config(config)
-        self.device = resolve_device(device)
-        self.dm = datamanager or FullImageDatamanager(config.data,
-                                                      seed=config.seed)
+        self.mesh = self._join_mesh(config, device)
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
+        # rank 0 writes metrics, journal and checkpoints, evals and serves
+        self.is_writer = self.mesh is None or self.mesh.rank == 0
+        host, hosts = host_of_job()
+        by_host = config.shard_views_by_process
+        self.dm = datamanager or FullImageDatamanager(
+            config.data, seed=config.seed,
+            process_index=host if by_host else 0,
+            process_count=hosts if by_host else 1)
         self.optims = optims or GroupOptimizers(config.optimizers)
         self.run_dir = (Path(config.output_dir)
                         / (config.experiment_name or "qed-splatter"))
         self.writer = MetricsWriter(
             self.run_dir, console_every=config.log_every,
             use_tensorboard=config.vis == "tensorboard",
-            use_wandb=config.vis == "wandb", use_comet=config.vis == "comet")
+            use_wandb=config.vis == "wandb",
+            use_comet=config.vis == "comet") if self.is_writer else \
+            _NoWriter()
         self.rgb_metrics = RGBMetrics()
         self._step_fns: Dict[Tuple, object] = {}
         # device batches by (camera, downscale), while they fit the budget
@@ -209,7 +246,7 @@ class Trainer:
         self._reseed_sampling()
         self._apply_crash_policy()
         self.viewer = None
-        if config.vis == "viewer":
+        if config.vis == "viewer" and self.is_writer:
             from qed_splatter_tpu_torch.viewer import Viewer
 
             self.viewer = Viewer(self.cfg, port=config.viewer_port,
@@ -217,8 +254,60 @@ class Trainer:
             # the state the run starts from is viewable before step 1
             self.viewer.update(self.state.params, self.state.step)
             self.viewer.start()
+        if self.mesh is not None:
+            self.state = shard_state(self.state, self.mesh)
+            # every rank read the journal before rank 0 writes to it
+            self.mesh.barrier()
 
     # ------------------------------------------------------------ setup
+
+    @staticmethod
+    def _join_mesh(config: TrainerConfig, device):
+        """This rank's mesh when D x M > 1 (joining the job the environment
+        describes), else None."""
+        n = config.num_data_shards * config.num_model_shards
+        if n == 1:
+            return None
+        dev = init_distributed(device)
+        if dev is None:
+            raise RuntimeError(
+                f"num_data_shards x num_model_shards = {n} needs {n} ranks: "
+                "run `cli train`, which starts them, or torchrun")
+        mesh = make_mesh(config.num_data_shards, config.num_model_shards,
+                         device=dev)
+        print(f"mesh {mesh.num_data}x{mesh.num_model}: rank {mesh.rank} "
+              f"(data {mesh.data_index}, model {mesh.model_index}) on "
+              f"{mesh.device}, backend {mesh.backend}, transport "
+              f"{mesh.transport()}", flush=True)
+        return mesh
+
+    def _full_state(self) -> TrainState:
+        """The whole state: gathered from the model peers under a mesh
+        (every rank of the mesh must call it)."""
+        if self.mesh is None:
+            return self.state
+        return gather_state(self.state, self.mesh)
+
+    def _as_writer(self, fn, *args):
+        """``fn(*args)``; under a mesh on rank 0 with ``self.state`` the
+        gathered state for the call, while the other ranks wait at a
+        barrier (every rank must call it)."""
+        if self.mesh is None:
+            return fn(*args)
+        full, out = self._full_state(), None
+        if self.is_writer:
+            local, self.state = self.state, full
+            try:
+                out = fn(*args)
+            finally:
+                self.state = local
+        self.mesh.barrier()
+        return out
+
+    def _restore(self, path) -> TrainState:
+        """A checkpoint's state, as this rank holds it."""
+        state = ckpt.restore_checkpoint(path, self.device)
+        return state if self.mesh is None else shard_state(state, self.mesh)
 
     @staticmethod
     def _model_config(config: TrainerConfig):
@@ -326,7 +415,8 @@ class Trainer:
         (``torch.cuda.synchronize``), ok. A configuration seen before runs
         with no overhead."""
         fkey = frozenset(key.items())
-        is_new = fkey not in self._witnessed
+        # the journal is rank 0's
+        is_new = self.is_writer and fkey not in self._witnessed
         if is_new:
             self._journal.attempt(**key)
         out = fn(*args)
@@ -391,6 +481,32 @@ class Trainer:
                 device=self.device)
         return self._step_fns[key]
 
+    def _get_sharded_step_fn(self, width, height, has_depth, has_mask,
+                             capacity, need_absgrad=True):
+        key = ("sharded", width, height, has_depth, has_mask, capacity,
+               need_absgrad, self.cfg.max_per_tile,
+               self.cfg.small_tiles_per_gaussian)
+        if key not in self._step_fns:
+            self._step_fns[key] = make_sharded_train_step(
+                self.cfg, self.optims, width, height, self.mesh,
+                has_depth=has_depth, has_mask=has_mask,
+                need_absgrad=need_absgrad)
+        return self._step_fns[key]
+
+    def _prepare_sharded_batch(self, step: int, d: int):
+        """The rank's cameras of step ``step``'s ``num_data_shards``
+        (every rank draws the same ones and loads its own), stacked."""
+        b_local = self.config.num_data_shards // self.mesh.num_data
+        lo = self.mesh.data_index * b_local
+        items = self.dm.next_train_batch(step, self.config.num_data_shards,
+                                         keep=slice(lo, lo + b_local))
+        parts = [self._prepare_batch(item, d) for item in items]
+        batches = [b for b, *_ in parts]
+        batch = {k: (torch.stack([bb[k] for bb in batches])
+                     if k != "cam_idx" else [bb[k] for bb in batches])
+                 for k in batches[0]}
+        return (batch,) + parts[0][1:]
+
     def _prepare_batch(self, item: Dict, d: int):
         """(batch on the device, camera, has_depth, has_mask) of one item at
         downscale ``d``; kept on the device while the batches of all
@@ -453,10 +569,11 @@ class Trainer:
         if new_cap in self._grow_refused:
             return False
         t0 = time.perf_counter()
-        pre = ckpt.copy_state(self.state, "cpu")
         print(f"Growing gaussian capacity {cap} -> {new_cap}")
+        if self.mesh is None:   # no canary under a mesh
+            self._canary = (cap, new_cap, ckpt.copy_state(self.state, "cpu"),
+                            cur, max_hw)
         self.state = self._grown_state(self.state, new_cap)
-        self._canary = (cap, new_cap, pre, cur, max_hw)
         self.writer.write(self.state.step, {
             "capacity_before": cap, "capacity_after": new_cap,
             "ms": (time.perf_counter() - t0) * 1e3}, prefix="grow")
@@ -501,36 +618,42 @@ class Trainer:
         if (cur > self.cfg.warmup_length and cur % self.cfg.refine_every == 0
                 and cur >= self._densify_frozen_until):
             t0 = time.perf_counter()
-            grown = self._maybe_grow(cur, max_hw)
+            # under a mesh every rank refines the gathered state alike
+            self.state = self._full_state()
+            self._maybe_grow(cur, max_hw)
             try:
                 info = self._refine(cur, max_hw)
             except Exception as e:
-                if not grown or not self._canary_reverts(e):
+                # the canary is set by this cadence's growth only
+                if self._canary is None or not self._canary_reverts(e):
                     raise
                 self._revert_growth(cur, e)
                 info = self._refine(cur, max_hw)
+            if self.mesh is not None:
+                self.state = shard_state(self.state, self.mesh)
             self.writer.write(cur, {**info._asdict(), "ms": (
                 time.perf_counter() - t0) * 1e3}, prefix="refine")
         if cfgt.steps_per_eval_image and cur % cfgt.steps_per_eval_image == 0:
-            self.eval_image(cur)
+            self._as_writer(self.eval_image, cur)
         if cfgt.steps_per_eval_batch and cur % cfgt.steps_per_eval_batch == 0:
-            self.eval_batch(cur)
+            self._as_writer(self.eval_batch, cur)
         if (cfgt.steps_per_eval_all_images
                 and cur % cfgt.steps_per_eval_all_images == 0):
-            self.eval_all(cur)
+            self._as_writer(self.eval_all, cur)
         if cfgt.steps_per_save and cur % cfgt.steps_per_save == 0:
             self._save(self.run_dir / "ckpts", cur)
             # a rollback target only if the params are finite
             if self._state_finite():
                 self._good_ckpt = cur
 
-    def _save(self, ckpt_dir: Path, step: int) -> Path:
-        return ckpt.save_checkpoint(
+    def _save(self, ckpt_dir: Path, step: int) -> Optional[Path]:
+        """A checkpoint of the whole state (rank 0's, under a mesh)."""
+        return self._as_writer(lambda: ckpt.save_checkpoint(
             ckpt_dir, self.state, step,
             dataparser_transform=self.dm.scene.transform_matrix,
             dataparser_scale=self.dm.scene.scale_factor,
             model_config=self.cfg, k_by_d=self._k_by_d,
-            tpg_by_d=self._tpg_by_d)
+            tpg_by_d=self._tpg_by_d))
 
     # ------------------------------------------------- divergence handling
 
@@ -540,6 +663,8 @@ class Trainer:
         p = self.state.params
         s = (p.means.sum() + p.scales.sum() + p.quats.sum()
              + p.opacities.sum() + self.state.camera_opt.sum())
+        if self.mesh is not None:   # one answer on every rank
+            s = self.mesh.all_reduce(s, "mesh")
         return bool(torch.isfinite(s))
 
     def _handle_divergence(self, step: int) -> int:
@@ -557,7 +682,7 @@ class Trainer:
             good = self._good_ckpt
             path = self.run_dir / "ckpts" / f"step-{good:09d}"
             self.state = None
-            self.state = ckpt.restore_checkpoint(path, self.device)
+            self.state = self._restore(path)
             self._rollbacks += 1
             self._densify_frozen_until = (
                 good + self.config.divergence_freeze_steps)
@@ -670,10 +795,11 @@ class Trainer:
         return max(1, min(g or 1, 100))
 
     def _use_scan(self) -> bool:
-        """Multi-step dispatch unless ``steps_per_dispatch=1``, a chunk of
-        1, or an image cache (every train frame and its depth, twice for
-        the downscale buckets) above ``max_device_cache_bytes``."""
-        if self.config.steps_per_dispatch == 1 or self._dispatch_chunk() <= 1:
+        """Multi-step dispatch unless under a mesh, ``steps_per_dispatch=1``,
+        a chunk of 1, or an image cache (every train frame and its depth,
+        twice for the downscale buckets) above ``max_device_cache_bytes``."""
+        if (self.mesh is not None or self.config.steps_per_dispatch == 1
+                or self._dispatch_chunk() <= 1):
             return False
         item = self.dm.get_item(int(self.dm.train_indices[0]))
         per = item["image"].nbytes + (
@@ -821,23 +947,34 @@ class Trainer:
         prev_loss = None
         # the profiler's window, the JAX trainer's: steps start + 10 to
         # start + 14 (once, whatever a rollback does to the step)
-        prof, traced = None, not cfgt.profile_dir
+        # (rank 0's alone under a mesh)
+        prof, traced = None, not cfgt.profile_dir or not self.is_writer
         while step < total:
             self._viewer_gate()
             if not traced and step == start_step + 10:
                 prof, traced = self._start_profile(), True
             d = self._downscale_factor(step)
             self._sync_bucket_cfg(d)
-            item = self.dm.next_train(step)
-            batch, cam, has_depth, has_mask = self._prepare_batch(item, d)
-            step_fn = self._get_step_fn(
+            if self.mesh is None:
+                item = self.dm.next_train(step)
+                batch, cam, has_depth, has_mask = self._prepare_batch(item,
+                                                                      d)
+                get_step = self._get_step_fn
+            else:
+                batch, cam, has_depth, has_mask = \
+                    self._prepare_sharded_batch(step, d)
+                get_step = self._get_sharded_step_fn
+            capacity = self.state.params.capacity * (
+                self.mesh.num_model if self.mesh is not None else 1)
+            step_fn = get_step(
                 cam.width, cam.height, has_depth, has_mask,
                 self.state.params.capacity,
                 # absgrad stats matter only while densification can run
                 need_absgrad=step < self.cfg.stop_split_at)
-            jrec = dict(kind="step", capacity=self.state.params.capacity,
+            jrec = dict(kind="step", capacity=capacity,
                         d=int(d), k=int(self.cfg.max_per_tile),
-                        w=int(cam.width), h=int(cam.height), sharded=False)
+                        w=int(cam.width), h=int(cam.height),
+                        sharded=self.mesh is not None)
             try:
                 self.state, metrics = self._dispatch_journaled(
                     jrec, step_fn, self.state, batch,
@@ -871,8 +1008,11 @@ class Trainer:
             if cur % cfgt.log_every == 0:
                 host = {k: float(v) for k, v in metrics.items()}
                 self.writer.write(cur, host, prefix="train")
-                if self.viewer is not None:
-                    self.viewer.update(self.state.params, cur, metrics=host)
+                if self.config.vis == "viewer":
+                    # every rank gathers; rank 0 holds the viewer
+                    params = self._full_state().params
+                    if self.viewer is not None:
+                        self.viewer.update(params, cur, metrics=host)
                 self._maybe_adapt_k(host.get("tile_overflow"),
                                     host.get("tile_max_count"),
                                     cam.width, cam.height, d)
@@ -922,9 +1062,13 @@ class Trainer:
 
     def finalize(self, total: Optional[int] = None) -> None:
         """End-of-training checkpoint (with both adaptive tables),
-        ``splat.ply`` and ``kernel_launches.json``."""
+        ``splat.ply`` and ``kernel_launches.json`` (rank 0's, under a
+        mesh)."""
         self._save(self.run_dir / "ckpts",
                    total if total is not None else self.state.step)
+        self._as_writer(self._finalize_files)
+
+    def _finalize_files(self) -> None:
         meta = ckpt.checkpoint_meta(self.run_dir / "ckpts")
         ckpt.export_ply(self.run_dir / "splat.ply", self.state.params, meta)
         (self.run_dir / "kernel_launches.json").write_text(json.dumps({

@@ -9,6 +9,8 @@ import dataclasses
 import json
 import time
 
+import torch_parallel_ranks as ranks
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +34,7 @@ from qed_splatter_tpu_torch.engine import trainer as trainer_mod
 from qed_splatter_tpu_torch.engine.trainer import Trainer, TrainingDiverged
 from qed_splatter_tpu_torch.engine.writer import MetricsWriter
 from qed_splatter_tpu_torch.models.gaussians import FIELDS, from_jax_arrays
+from qed_splatter_tpu_torch.parallel import launch
 
 
 @pytest.fixture(scope="module")
@@ -269,8 +272,9 @@ def test_growth_canary_reverts_on_oom(dataset, tmp_path, monkeypatch,
 # ROADMAP items done since their options were refused here: 7 (the
 # mixed_precision kernels), 12 (profile_dir, with the port's bench), 1
 # (multi-step dispatch), 2 (the attempt journal and supervise), 9 (the
-# writer backends), 6 (the bilateral grid) and 10 (the viewer)
-PORTED_ITEMS = (7, 12, 1, 2, 9, 6, 10)
+# writer backends), 6 (the bilateral grid), 10 (the viewer) and 8 (the
+# mesh); every option is ported now
+PORTED_ITEMS = (7, 12, 1, 2, 9, 6, 10, 8)
 
 
 @pytest.mark.parametrize("kw,item", [
@@ -281,51 +285,60 @@ PORTED_ITEMS = (7, 12, 1, 2, 9, 6, 10)
     (dict(profile_dir="trace"), 12),
     (dict(model_kw=dict(use_bilateral_grid=True)), 6)])
 def test_trainer_refuses_unported(dataset, tmp_path, kw, item):
-    if item in PORTED_ITEMS:
-        # ported since: the option builds a trainer and takes effect (its
-        # runs are held in test_profile_dir_writes_a_trace,
-        # tests/test_torch_mixed_precision, test_torch_scan_runner,
-        # test_torch_crash_recovery, test_torch_bilateral_grid and
-        # test_torch_viewer)
-        t = Trainer(_config(dataset, tmp_path, **kw), device="cpu")
-        assert t.config.mixed_precision == t.cfg.mixed_precision
-        if item == 1:
-            assert t._dispatch_chunk() == 4 and t._use_scan()
-        if item == 2:
-            assert t.config.supervise
-            assert t._journal.path == t.run_dir / "attempt_journal.jsonl"
-        if item == 9:
-            # the backend named by vis, or (not installed) JSONL alone
-            backends = {"tensorboard": t.writer._tb,
-                        "wandb": t.writer._wandb, "comet": t.writer._comet}
-            assert all(b is None for k, b in backends.items()
-                       if k != kw["vis"])
-            t.writer.write(1, {"loss": 0.5}, prefix="train")
-            t.writer.close()
-            assert '"loss": 0.5' in (t.run_dir / "metrics.jsonl").read_text()
-        if item == 6:
-            g = t.state.bilateral_grids
-            assert g.shape == (t.state.camera_opt.shape[0], 16, 16, 8, 12)
-            assert int(t.state.bilateral_grid_state["count"]) == 0
-        if item == 10:
-            # the viewer serves from construction on
-            import urllib.request
-
-            try:
-                st = json.loads(urllib.request.urlopen(
-                    f"http://127.0.0.1:{t.viewer.port}/status",
-                    timeout=30).read())
-                assert st["step"] == 0 and not st["paused"]
-            finally:
-                t.viewer.stop()
-        else:
-            assert t.viewer is None
+    assert item in PORTED_ITEMS
+    # ported since: the option builds a trainer and takes effect (its runs
+    # are held in test_profile_dir_writes_a_trace,
+    # tests/test_torch_mixed_precision, test_torch_scan_runner,
+    # test_torch_crash_recovery, test_torch_bilateral_grid,
+    # test_torch_viewer and test_torch_parallel_trainer)
+    if item == 8:
+        # a mesh of two ranks (gloo on the CPU), two cameras a step
+        cfg = dataclasses.replace(_config(dataset, tmp_path, **kw),
+                                  max_num_iterations=4, steps_per_save=0,
+                                  log_every=2)
+        out = tmp_path / "rank0.pt"
+        launch.spawn(launch.run_rank, 2, (
+            ranks.one_thread, 2, launch.free_port(),
+            (ranks.train, cfg, str(out))), timeout=240.0)
+        got = torch.load(out, weights_only=False)
+        assert got["mesh"] == (2, 1, "gloo") and got["step"] == 4
+        rows = [json.loads(x) for x in open(
+            tmp_path / "qed-splatter" / "metrics.jsonl")]
+        assert [r["step"] for r in rows if r["split"] == "train"] == [2, 4]
         return
-    name = kw.get("vis") or ""
-    with pytest.raises(NotImplementedError,
-                       match=f"{name}.*ROADMAP.md, 'Next, in order' item "
-                             f"{item},"):
-        Trainer(_config(dataset, tmp_path, **kw), device="cpu")
+    t = Trainer(_config(dataset, tmp_path, **kw), device="cpu")
+    assert t.config.mixed_precision == t.cfg.mixed_precision
+    if item == 1:
+        assert t._dispatch_chunk() == 4 and t._use_scan()
+    if item == 2:
+        assert t.config.supervise
+        assert t._journal.path == t.run_dir / "attempt_journal.jsonl"
+    if item == 9:
+        # the backend named by vis, or (not installed) JSONL alone
+        backends = {"tensorboard": t.writer._tb,
+                    "wandb": t.writer._wandb, "comet": t.writer._comet}
+        assert all(b is None for k, b in backends.items()
+                   if k != kw["vis"])
+        t.writer.write(1, {"loss": 0.5}, prefix="train")
+        t.writer.close()
+        assert '"loss": 0.5' in (t.run_dir / "metrics.jsonl").read_text()
+    if item == 6:
+        g = t.state.bilateral_grids
+        assert g.shape == (t.state.camera_opt.shape[0], 16, 16, 8, 12)
+        assert int(t.state.bilateral_grid_state["count"]) == 0
+    if item == 10:
+        # the viewer serves from construction on
+        import urllib.request
+
+        try:
+            st = json.loads(urllib.request.urlopen(
+                f"http://127.0.0.1:{t.viewer.port}/status",
+                timeout=30).read())
+            assert st["step"] == 0 and not st["paused"]
+        finally:
+            t.viewer.stop()
+    else:
+        assert t.viewer is None
 
 
 def test_writer_rows(tmp_path):
