@@ -134,10 +134,10 @@ forest. BASELINE config #4: the forest (``testing.write_forest_dataset``,
    final checkpoint the compositing forward and the gather held on an eval
    frame, and one step's gradients and the backward kernel on a training
    frame, against their plain versions.
-sharded. ``parallel/*`` through four gloo ranks sharing cuda:0 (one card:
-   NCCL takes a card a rank): which collectives gloo runs on CUDA tensors
-   (``tools/gloo_probe.py``) against ``GLOO_DEVICE_OPS``; (a) the JAX
-   dryrun workload (``__graft_entry__.py``: 512x384, 65,536 / 40,000,
+sharded. ``parallel/*`` through gloo ranks sharing cuda:0 (one card:
+   NCCL takes a card a rank), one job a mesh: which collectives gloo runs
+   on CUDA tensors (``tools/gloo_probe.py``; the step's three must); (a)
+   the JAX dryrun workload (``__graft_entry__.py``: 512x384, 65,536 / 40,000,
    K=256, SO3xR3, the grid, B=2, 2 steps) at 2x1, 1x2 and 2x2 against the
    1x1 mesh in this process (loss within 1e-4, ``vis_count`` equal, absgrad
    abs/scale 1e-3 and rel@sig 1e-2, means within 6 lr_means); (b) scene A
@@ -150,9 +150,9 @@ sharded. ``parallel/*`` through four gloo ranks sharing cuda:0 (one card:
    single-device per-step trainer (run twice: the first 10 losses within
    1e-4, the gaussians after the first refine within 0.1%, eval PSNR
    within 0.3 dB of the two runs' mean) and at 2x1 (eval PSNR at most
-   1.0 dB under single, both with densification held off; with it on, a
-   reading), ``cli eval`` of rank 0's checkpoint equal to the run's own
-   eval, ms per step of each.
+   1.0 dB under single, both with densification held off; with it on,
+   the reading printed beside that bar), ``cli eval`` of rank 0's
+   checkpoint equal to the run's own eval, ms per step of each.
 
 Each render or train phase resets the kernels' launch counts, drives the
 path, and fails unless every kernel of the path launched at least once per
@@ -1247,15 +1247,25 @@ def loss_branch_kinds(a, b, batch):
     (depth - gt), and depth's fallback where alpha is 0. Frames that agree
     to rounding still fall on either side of a kink where a pixel lies
     within rounding of it, and there the two gradients differ by that
-    pixel's whole weight."""
+    pixel's whole weight.
+
+    The clamp passes the gradient at an edge itself (``torch.clamp``'s
+    backward is inclusive) and cuts it beyond. Before the clamp rgb is
+    render + (1 - alpha) bg with render >= 0, so a 0 lies beyond the edge
+    only where (1 - alpha) bg < 0: an opaque pixel whose alpha rounds
+    above 1, on a channel every splat there renders 0 (a trained state has
+    such pixels; the other path's alpha rounds to 1 or below). A 1 may lie
+    at the edge or beyond it, and counts as beyond."""
     rgb, depth = batch["rgb"], batch["depth"]
-    clamp = torch.zeros_like(a.rgb[..., 0], dtype=torch.bool)
-    for edge in (0.0, 1.0):
-        clamp |= ((a.rgb == edge) != (b.rgb == edge)).any(-1)
+
+    def cut(o):
+        return (o.rgb == 1.0) | ((o.rgb == 0.0) & (
+            (1.0 - o.accumulation) * o.background < 0.0))
+
     return {
         "l1_sign": (torch.sign(a.rgb - rgb)
                     != torch.sign(b.rgb - rgb)).any(-1),
-        "clamp": clamp,
+        "clamp": (cut(a) != cut(b)).any(-1),
         "depth_sign": (torch.sign(a.depth - depth)
                        != torch.sign(b.depth - depth))[..., 0],
         "alpha_zero": ((a.accumulation > 0)
@@ -3915,12 +3925,12 @@ def sharded_result(run):
         means=full.params.means.cpu(), b_local=run["b_local"])
 
 
-def sharded_rank(work, seed):
-    """The body of one of the phase's ranks (gloo, every rank on cuda:0):
-    the probe of gloo's collectives on CUDA tensors, then every case of
-    :func:`sharded_cases` on its sub-mesh (the ranks outside it wait),
-    rank 0 writing each result and the kernel rows of A 2x2 and B 1x2, and
-    every rank its launches."""
+def sharded_rank(work, num_data, num_model):
+    """The body of one rank of the ``num_data x num_model`` job (gloo,
+    every rank on cuda:0): the probe of gloo's collectives on CUDA tensors,
+    then every case of :func:`sharded_cases` on this mesh, rank 0 writing
+    each result and the kernel rows of A 2x2 and B 1x2, and every rank its
+    launches."""
     import torch.distributed as dist
 
     from qed_splatter_tpu_torch.parallel.mesh import init_distributed, \
@@ -3930,31 +3940,30 @@ def sharded_rank(work, seed):
     torch.set_num_threads(2)
     dev = init_distributed("cuda")
     rank = dist.get_rank()
+    tag = f"{num_data}x{num_model}"
     try:
         out = {"probe": probe_ops(dev), "backend": dist.get_backend()}
         inputs = torch.load(f"{work}/inputs.pt", map_location=dev,
                             weights_only=False)
+        mesh = make_mesh(num_data, num_model, device=dev)
         launches = {}
         for name, nd, nm, scene, steps, extra in sharded_cases():
-            mesh = make_mesh(nd, nm, ranks=range(nd * nm), device=dev)
-            if mesh is not None:
-                kernel_rows = name in ("A 2x2", "B 1x2")
-                run = sharded_run(mesh, inputs[scene], steps, extra,
-                                  capture=kernel_rows and rank == 0)
-                launches[name] = run["launches"]
-                if rank == 0:
-                    out[name] = sharded_result(run)
-                    out[name]["mesh"] = (mesh.num_data, mesh.num_model,
-                                         mesh.backend, mesh.transport())
-                    if kernel_rows:
-                        out[name]["kernels"] = sharded_kernel_rows(
-                            name, run, inputs[scene])
-                del run
-                torch.cuda.empty_cache()
-            dist.barrier()
-        torch.save(launches, f"{work}/launches_{rank}.pt")
+            if (nd, nm) != (num_data, num_model):
+                continue
+            kernel_rows = name in ("A 2x2", "B 1x2")
+            run = sharded_run(mesh, inputs[scene], steps, extra,
+                              capture=kernel_rows and rank == 0)
+            launches[name] = run["launches"]
+            if rank == 0:
+                out[name] = sharded_result(run)
+                if kernel_rows:
+                    out[name]["kernels"] = sharded_kernel_rows(
+                        name, run, inputs[scene])
+            del run
+            torch.cuda.empty_cache()
+        torch.save(launches, f"{work}/launches_{tag}_{rank}.pt")
         if rank == 0:
-            torch.save(out, f"{work}/sharded.pt")
+            torch.save(out, f"{work}/sharded_{tag}.pt")
     finally:
         dist.destroy_process_group()
 
@@ -4055,11 +4064,11 @@ def phase_sharded(seed, root, work):
     per-step trainer, and ``cli eval`` of rank 0's checkpoint."""
     from qed_splatter_tpu_torch import cli
     from qed_splatter_tpu_torch.parallel import launch
-    from qed_splatter_tpu_torch.parallel.mesh import GLOO_DEVICE_OPS, \
-        _ALL_GATHER, _REDUCE_SCATTER
+    from qed_splatter_tpu_torch.parallel.mesh import _ALL_GATHER, \
+        _REDUCE_SCATTER
 
-    print(f"phase sharded: {SHARDED_RANKS} gloo ranks sharing cuda:0",
-          flush=True)
+    print(f"phase sharded: one job a mesh, up to {SHARDED_RANKS} gloo "
+          "ranks sharing cuda:0", flush=True)
     t_phase = time.perf_counter()
     work.mkdir(parents=True, exist_ok=True)
     inputs = sharded_inputs(seed)
@@ -4073,36 +4082,42 @@ def phase_sharded(seed, root, work):
     del inputs
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    launch.spawn(launch.run_rank, SHARDED_RANKS, (
-        sharded_rank, SHARDED_RANKS, launch.free_port(),
-        (str(work), seed)), timeout=600)
-    t_ranks = time.perf_counter() - t0
-    got = torch.load(work / "sharded.pt", weights_only=False)
-    launches = {}
-    for r in range(SHARDED_RANKS):
-        for name, n in torch.load(work / f"launches_{r}.pt").items():
-            tot = launches.setdefault(name, {})
-            for k, v in n.items():
-                tot[k] = tot.get(k, 0) + v
-    print(f"  {SHARDED_RANKS} ranks ran in {t_ranks:.1f} s; backend "
-          f"{got['backend']}, transport {got['A 2x2']['mesh'][3]}")
-
-    # the transport rule against the card's gloo
-    spell = {"all_reduce": ("all_reduce_sum", "all_reduce_max"),
-             "all_gather": (_ALL_GATHER.__name__,),
-             "reduce_scatter": (_REDUCE_SCATTER.__name__,)}
-    print(f"  gloo on CUDA tensors (probe): {got['probe']}")
-    for op in GLOO_DEVICE_OPS:
-        check(all(got["probe"][s] == "ok" for s in spell[op]),
-              f"gloo runs {op} ({', '.join(spell[op])}) on CUDA tensors, "
-              "as GLOO_DEVICE_OPS says")
-    check(got["backend"] == "gloo", "ranks sharing one card chose gloo")
+    got, launches = {}, {}
+    # the transport rule: gloo takes CUDA tensors for the step's three
+    # collectives, so nothing is staged through a host copy
+    step_ops = ("all_reduce_sum", "all_reduce_max", _ALL_GATHER.__name__,
+                _REDUCE_SCATTER.__name__)
+    for nd, nm in SHARDED_MESHES:
+        tag = f"{nd}x{nm}"
+        t0 = time.perf_counter()
+        launch.spawn(launch.run_rank, nd * nm, (
+            sharded_rank, nd * nm, launch.free_port(),
+            (str(work), nd, nm)), timeout=600)
+        t_ranks = time.perf_counter() - t0
+        job = torch.load(work / f"sharded_{tag}.pt", weights_only=False)
+        for r in range(nd * nm):
+            for name, n in torch.load(
+                    work / f"launches_{tag}_{r}.pt").items():
+                tot = launches.setdefault(name, {})
+                for k, v in n.items():
+                    tot[k] = tot.get(k, 0) + v
+        print(f"  {tag}: {nd * nm} ranks ran in {t_ranks:.1f} s; backend "
+              f"{job['backend']}; gloo on CUDA tensors (probe): "
+              f"{job['probe']}")
+        check(job["backend"] == "gloo", f"{tag}: ranks sharing one card "
+              "chose gloo")
+        check(all(job["probe"][op] == "ok" for op in step_ops),
+              f"{tag}: gloo runs the step's collectives "
+              f"({', '.join(step_ops)}) on CUDA tensors, so nothing is "
+              "staged")
+        got.update(job)
+    print("  transport: CUDA tensors handed to gloo as they are (gloo "
+          "copies them through host memory); no collective staged")
 
     summary = {"backend": got["backend"], "ms_per_step_1x1": {
         scene: r["ms"] for scene, r in refs.items()},
-               "transport": got["A 2x2"]["mesh"][3], "a": {}, "b": {},
-               "ms_per_step": {}, "launches": launches}
+               "transport": "CUDA tensors to gloo, none staged", "a": {},
+               "b": {}, "ms_per_step": {}, "launches": launches}
     for name, nd, nm, scene, steps, extra in sharded_cases():
         r = got[name]
         n = launches[name]
@@ -4224,11 +4239,23 @@ def sharded_cli(seed, root, work, cli):
     single = (psnr["single"] + psnr["single2"]) / 2
     print(f"  eval PSNR at {SHARDED_STEPS}: {psnr} (single twice: spread "
           f"{abs(psnr['single'] - psnr['single2']):.3f} dB; 1x2 "
-          f"{psnr['m2'] - single:+.3f} dB of their mean, bar 0.3; 2x1 at "
-          f"most 1.0 dB under single, both with densification held off; 2x1 "
-          f"with it on {psnr['d2'] - single:+.3f} dB, a reading)")
+          f"{psnr['m2'] - single:+.3f} dB of their mean, bar 0.3)")
     check(abs(psnr["m2"] - single) <= 0.3,
           "1x2's eval PSNR within 0.3 dB of single's")
+    # the bar of 2x1, at most 1.0 dB under single, on the default config:
+    # the view-parallel step (the JAX package's, which the port's 2x1
+    # trainer equals through a refine:
+    # tests/test_torch_parallel_trainer.py) densifies less, so the reading
+    # stands beside the bar and PERF.md gives its cause; the bar is held
+    # on the pair of runs with densification held off
+    d2_gap = psnr["d2"] - single
+    print(f"  2x1 with densification (the default config): {d2_gap:+.3f} "
+          f"dB against single, bar -1.0 dB: "
+          + ("met" if d2_gap >= -1.0 else "missed (the reference's "
+             "view-parallel densify statistic; PERF.md, PR 12)"))
+    print(f"  2x1 with densification held off on both: "
+          f"{psnr['d2_fixed'] - psnr['single_fixed']:+.3f} dB against "
+          f"single, bar -1.0 dB")
     check(psnr["d2_fixed"] >= psnr["single_fixed"] - 1.0,
           "2x1's eval PSNR at most 1.0 dB under single (densification "
           "held off on both)")

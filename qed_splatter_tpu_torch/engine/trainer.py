@@ -277,8 +277,7 @@ class Trainer:
                          device=dev)
         print(f"mesh {mesh.num_data}x{mesh.num_model}: rank {mesh.rank} "
               f"(data {mesh.data_index}, model {mesh.model_index}) on "
-              f"{mesh.device}, backend {mesh.backend}, transport "
-              f"{mesh.transport()}", flush=True)
+              f"{mesh.device}, backend {mesh.backend}", flush=True)
         return mesh
 
     def _full_state(self) -> TrainState:
@@ -303,6 +302,13 @@ class Trainer:
                 self.state = local
         self.mesh.barrier()
         return out
+
+    def _eval_as_writer(self, fn, cur: int, d: int) -> None:
+        """``fn(cur)``, an eval rendering at 1/``d``, as :meth:`_as_writer`
+        runs it. The eval seeds bucket 1/``d``'s K (:meth:`_k_eval`), so
+        every rank seeds it first, alike: the ranks' K tables stay one."""
+        self._k_for(d)
+        self._as_writer(fn, cur)
 
     def _restore(self, path) -> TrainState:
         """A checkpoint's state, as this rank holds it."""
@@ -633,13 +639,14 @@ class Trainer:
                 self.state = shard_state(self.state, self.mesh)
             self.writer.write(cur, {**info._asdict(), "ms": (
                 time.perf_counter() - t0) * 1e3}, prefix="refine")
+        d = self._downscale_factor(cur)
         if cfgt.steps_per_eval_image and cur % cfgt.steps_per_eval_image == 0:
-            self._as_writer(self.eval_image, cur)
+            self._eval_as_writer(self.eval_image, cur, d)
         if cfgt.steps_per_eval_batch and cur % cfgt.steps_per_eval_batch == 0:
-            self._as_writer(self.eval_batch, cur)
+            self._eval_as_writer(self.eval_batch, cur, d)
         if (cfgt.steps_per_eval_all_images
                 and cur % cfgt.steps_per_eval_all_images == 0):
-            self._as_writer(self.eval_all, cur)
+            self._eval_as_writer(self.eval_all, cur, 1)
         if cfgt.steps_per_save and cur % cfgt.steps_per_save == 0:
             self._save(self.run_dir / "ckpts", cur)
             # a rollback target only if the params are finite

@@ -21,27 +21,23 @@ are the identity.
 for it. When every rank on the host has a card of its own the backend is
 ``nccl``; otherwise (ranks sharing a card, or on the CPU) it is ``gloo``.
 The layout decides this before ``init_process_group``; nothing is retried
-another way after an error. Gloo takes CUDA tensors for every collective
-the step uses (:data:`GLOO_DEVICE_OPS`; gloo copies them through host
-memory itself), so the port hands them over as they are; were one refused
-on the card, the port would need a host copy of it, and
-``chip_smoke.py`` holds the set to ``tools/gloo_probe.py``'s answer there.
+another way after an error. Gloo takes CUDA tensors for each collective
+the step calls (all-reduce, and the rows' all-gather and reduce-scatter;
+gloo copies them through host memory itself), so the port hands them over
+as they are and stages nothing; ``chip_smoke.py`` holds that to
+``tools/gloo_probe.py``'s answer on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Optional, Sequence
+from typing import Optional
 
 import torch
 import torch.distributed as dist
 
 from qed_splatter_tpu_torch import resolve_device
-
-# the collectives the step hands CUDA tensors to under gloo: gloo runs all
-# three on them (tools/gloo_probe.py on the card, torch 2.11)
-GLOO_DEVICE_OPS = frozenset({"all_reduce", "all_gather", "reduce_scatter"})
 
 # the tensor forms of the two row collectives: torch 2.13 renames them
 # (``*_single``) and deprecates the older names, which earlier versions
@@ -117,12 +113,6 @@ class Mesh:
     model_group: Optional[object]  # None when num_model == 1
     group: Optional[object]        # every rank of the mesh
 
-    def transport(self) -> str:
-        """The transport in words, for the trainer's first line."""
-        if self.backend == "gloo" and self.device.type == "cuda":
-            return "CUDA tensors to gloo (gloo copies through host memory)"
-        return "in place"
-
     # ------------------------------------------------------ collectives
 
     def all_reduce(self, x: torch.Tensor, axis: str,
@@ -168,38 +158,31 @@ class Mesh:
 
 
 def make_mesh(num_data: int = 1, num_model: int = 1,
-              ranks: Optional[Sequence[int]] = None,
-              device="cuda") -> Optional[Mesh]:
-    """This rank's :class:`Mesh` of ``num_data x num_model`` over
-    ``ranks`` (default: the whole job), or None when this rank is not one
-    of them. Every rank of the job must call it with the same arguments:
-    each group is made by every rank, in one order. A 1x1 mesh needs no
-    job."""
+              device="cuda") -> Mesh:
+    """This rank's :class:`Mesh` of ``num_data x num_model``, the whole
+    job. Every rank of the job must call it: each group is made by every
+    rank, in one order. A 1x1 mesh needs no job."""
     n = num_data * num_model
     if n == 1 and not dist.is_initialized():
         return Mesh(1, 1, 0, 0, 0, resolve_device(device), "none", None,
                     None, None)
     world = dist.get_world_size()
-    ranks: List[int] = list(range(n) if ranks is None else ranks)
-    if len(ranks) != n or n > world:
+    if n != world:
         raise ValueError(f"mesh {num_data}x{num_model} needs {n} ranks; "
-                         f"the job has {world}, {len(ranks)} given")
-    me = dist.get_rank()
-    grid = [ranks[d * num_model:(d + 1) * num_model]
+                         f"the job has {world}")
+    grid = [list(range(d * num_model, (d + 1) * num_model))
             for d in range(num_data)]
-    mesh_group = dist.new_group(ranks) if n > 1 else None
+    mesh_group = dist.new_group(list(range(n))) if n > 1 else None
     data_groups, model_groups = [], []
     if num_data > 1:   # ranks sharing a model index
         data_groups = [dist.new_group([row[m] for row in grid])
                        for m in range(num_model)]
     if num_model > 1:  # ranks sharing a data index
         model_groups = [dist.new_group(row) for row in grid]
-    if me not in ranks:
-        return None
-    pos = ranks.index(me)
-    d, m = divmod(pos, num_model)
+    me = dist.get_rank()
+    d, m = divmod(me, num_model)
     dev = (torch.device("cuda", torch.cuda.current_device())
            if resolve_device(device).type == "cuda" else torch.device("cpu"))
-    return Mesh(num_data, num_model, pos, d, m, dev, dist.get_backend(),
+    return Mesh(num_data, num_model, me, d, m, dev, dist.get_backend(),
                 data_groups[m] if data_groups else None,
                 model_groups[d] if model_groups else None, mesh_group)

@@ -9,10 +9,10 @@ means ``cuda:0`` for every rank: ranks that share a card, the layout that
 ``parallel/mesh.py`` runs over gloo), and tries each collective the sharded
 step uses, and its older or newer spellings, on a tensor of that device.
 Prints the torch version and ONE JSON dict: ``{op: "ok" | "wrong" |
-"raises: <error>"}``. ``parallel/mesh.py::GLOO_DEVICE_OPS`` is the set of
-ops that gloo runs on CUDA tensors in place; ``chip_smoke.py``'s sharded
-phase runs :func:`probe_ops` in its ranks and holds that set to the
-answer on the card.
+"raises: <error>"}``. ``parallel/mesh.py`` hands gloo CUDA tensors for
+the collectives the step calls and stages none; ``chip_smoke.py``'s
+sharded phase runs :func:`probe_ops` in its ranks and holds each of those
+collectives to "ok" on the card.
 """
 
 from __future__ import annotations

@@ -79,14 +79,42 @@ def sharded_steps(inp_path: str, out_path: str, mesh_shape, width: int,
         torch.save(out, out_path)
 
 
-def train(cfg, out_path: str) -> None:
+def train(cfg, out_path: str, refine_eps=None) -> None:
     """``Trainer(cfg).train()`` as one rank on the CPU; rank 0 saves the
-    mesh it ran on and the gathered final state."""
+    mesh it ran on, the gathered final state and every rank's K tables
+    (``(step, table before, table after)`` of each adaptive-K call). With
+    ``refine_eps`` ({step: [rows, 3] array}), each refine takes its split
+    offsets from there instead of the trainer's generator."""
+    from qed_splatter_tpu_torch.engine import trainer as trainer_mod
     from qed_splatter_tpu_torch.engine.trainer import Trainer
 
+    plain = trainer_mod.refine
+
+    def given_eps(params, opt_state, stats, step, *args, generator, **kw):
+        return plain(params, opt_state, stats, step, *args,
+                     eps=torch.as_tensor(refine_eps[int(step)]), **kw)
+
     t = Trainer(cfg, device="cpu")
-    t.train()
+    tables = []
+    adapt = t._maybe_adapt_k
+
+    def recording(*args, **kw):
+        before = dict(t._k_by_d)
+        adapt(*args, **kw)
+        tables.append((t.state.step, before, dict(t._k_by_d)))
+
+    t._maybe_adapt_k = recording
+    if refine_eps is not None:
+        trainer_mod.refine = given_eps
+    try:
+        t.train()
+    finally:
+        trainer_mod.refine = plain
     full = t._full_state()
+    k_tables = [tables]
+    if t.mesh is not None:
+        k_tables = [None] * dist.get_world_size()
+        dist.all_gather_object(k_tables, tables)
     if t.is_writer:
         m = t.mesh
         torch.save({"mesh": ((m.num_data, m.num_model, m.backend) if m
@@ -94,5 +122,5 @@ def train(cfg, out_path: str) -> None:
                     "local_capacity": t.state.params.capacity,
                     "alive": full.params.alive.numpy(),
                     "means": full.params.means.numpy(),
-                    "step": t.state.step,
+                    "step": t.state.step, "k_tables": k_tables,
                     "pid": os.getpid()}, out_path)
