@@ -1235,7 +1235,11 @@ def train_batch(rng):
     )
 
 
-KINKS = ("l1_sign", "clamp", "depth_sign", "alpha_zero")
+KINKS = ("l1_sign", "clamp", "clamp_opaque", "depth_sign", "alpha_zero")
+# how near the clamp's edge at 0 a channel of an opaque pixel lies, and how
+# near 1 its alpha, for the pair of values to be rounding: alpha rounds 2 ulp
+# above 1 and 4e-7 below it on the forest, (1 - alpha) bg rounds to 2.5e-7
+OPAQUE_EPS = 1e-6
 
 
 @torch.no_grad()
@@ -1252,20 +1256,34 @@ def loss_branch_kinds(a, b, batch):
     The clamp passes the gradient at an edge itself (``torch.clamp``'s
     backward is inclusive) and cuts it beyond. Before the clamp rgb is
     render + (1 - alpha) bg with render >= 0, so a 0 lies beyond the edge
-    only where (1 - alpha) bg < 0: an opaque pixel whose alpha rounds
-    above 1, on a channel every splat there renders 0 (a trained state has
-    such pixels; the other path's alpha rounds to 1 or below). A 1 may lie
-    at the edge or beyond it, and counts as beyond."""
+    only where (1 - alpha) bg < 0: an opaque pixel whose alpha (a sum of
+    weights) rounds above 1, on a channel every splat there renders 0. On
+    such a channel rgb before the clamp is (1 - alpha) bg on both paths,
+    rounding about the edge, and its sign is each path's rounding: a
+    trained state has such pixels, and the count that lands on two sides
+    varies from training to training. A clamp kink where, on
+    both paths, alpha lies within ``OPAQUE_EPS`` of 1 and every channel
+    on two sides within ``OPAQUE_EPS`` of 0 is of kind ``clamp_opaque``;
+    every other one (a 1, which may lie at the edge or beyond it and counts
+    as beyond, or a 0 with more than rounding before the clamp) is of kind
+    ``clamp``."""
     rgb, depth = batch["rgb"], batch["depth"]
 
     def cut(o):
         return (o.rgb == 1.0) | ((o.rgb == 0.0) & (
             (1.0 - o.accumulation) * o.background < 0.0))
 
+    def at_edge(o):
+        return (o.rgb <= OPAQUE_EPS) & (
+            (1.0 - o.accumulation).abs() <= OPAQUE_EPS)
+
+    flip = cut(a) != cut(b)
+    opaque = flip.any(-1) & (~flip | (at_edge(a) & at_edge(b))).all(-1)
     return {
         "l1_sign": (torch.sign(a.rgb - rgb)
                     != torch.sign(b.rgb - rgb)).any(-1),
-        "clamp": (cut(a) != cut(b)).any(-1),
+        "clamp": flip.any(-1) & ~opaque,
+        "clamp_opaque": opaque,
         "depth_sign": (torch.sign(a.depth - depth)
                        != torch.sign(b.depth - depth))[..., 0],
         "alpha_zero": ((a.accumulation > 0)
@@ -1340,7 +1358,9 @@ def hold_grads(cfg, optims, width, height, at, a, batch, seed_bg, what, bar,
     and, where there are any, masked out of the loss on both paths before
     the bar is held. ``max_kinks`` ({kind: most pixels}, see
     :func:`loss_branch_kinds`) bounds them by kind; by default 8 pixels in
-    all. Returns the count of each kind."""
+    all. Kind ``clamp_opaque`` is bound by what it is, both paths within
+    rounding of the clamp's edge, and not by a count (see
+    :func:`loss_branch_kinds`). Returns the count of each kind."""
     import dataclasses
 
     from qed_splatter_tpu_torch.engine.train_step import make_train_step
@@ -1377,8 +1397,8 @@ def hold_grads(cfg, optims, width, height, at, a, batch, seed_bg, what, bar,
           f"{text}; pixels on another branch of the loss: {n_kinks}, by "
           f"kind {by_kind}")
     if max_kinks is None:
-        check(n_kinks <= 8, "at most 8 pixels lie within rounding of a "
-              "kink of the loss")
+        check(n_kinks - by_kind["clamp_opaque"] <= 8, "at most 8 pixels lie "
+              "within rounding of a kink of the loss, besides clamp_opaque")
     else:
         check(all(by_kind[kind] <= most for kind, most in max_kinks.items()),
               f"pixels within rounding of a kink of the loss, by kind, at "

@@ -11,10 +11,12 @@ another branch of a kink of the loss and bounding their count by kind
 (``hold_grads``). The clamp of rgb to [0, 1] is one such kink. This script
 runs the phase ``--runs`` times and reports, for each run, the clamp kinks
 as the smoke counts them (the branch the clamp's gradient takes,
-``loss_branch_kinds``) and as a plain comparison of the clamped values
-with the edges would count them, and for each clamp kink the two paths'
-rgb and alpha there and the ground truth. A run whose counts pass a bound
-of the phase is reported, not stopped.
+``loss_branch_kinds``), bounded (``clamp``) and within rounding of the
+edge on an opaque pixel (``clamp_opaque``), and as a plain comparison of
+the clamped values with the edges would count them, and for each clamp
+kink of either kind the two paths' rgb and alpha there and the ground
+truth. A run whose counts pass a bound of the phase is reported, not
+stopped.
 
 One JSON line at the end. Needs CUDA and nvcc; imports no JAX.
 """
@@ -53,7 +55,8 @@ def main(argv=None) -> int:
         kinds = kinds_of(a, b, batch)
         if any(r["frame"] is a for r in readings):
             return kinds
-        by_value = torch.zeros_like(kinds["clamp"])
+        clamped = kinds["clamp"] | kinds["clamp_opaque"]
+        by_value = torch.zeros_like(clamped)
         for edge in (0.0, 1.0):
             by_value |= ((a.rgb == edge) != (b.rgb == edge)).any(-1)
         pixels = [{
@@ -62,8 +65,9 @@ def main(argv=None) -> int:
             "alpha": [float(a.accumulation[y, x]),
                       float(b.accumulation[y, x])],
             "gt": batch["rgb"][y, x].tolist()}
-            for y, x in kinds["clamp"].nonzero().tolist()]
+            for y, x in clamped.nonzero().tolist()]
         readings.append({"frame": a, "clamp": int(kinds["clamp"].sum()),
+                         "clamp_opaque": int(kinds["clamp_opaque"].sum()),
                          "clamp_by_value": int(by_value.sum()),
                          "pixels": pixels})
         return kinds
@@ -83,8 +87,9 @@ def main(argv=None) -> int:
             readings.clear()
             torch.cuda.empty_cache()
             r["failed"] = failed
-            print(f"run {i}: clamp kinks {r['clamp']} (by the clamped "
-                  f"values {r['clamp_by_value']}); "
+            print(f"run {i}: clamp kinks {r['clamp']}, clamp_opaque "
+                  f"{r['clamp_opaque']} (by the clamped values "
+                  f"{r['clamp_by_value']}); "
                   f"{'failed: ' + failed if failed else 'the phase held'}",
                   flush=True)
             for p in r["pixels"]:
