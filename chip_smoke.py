@@ -2344,6 +2344,16 @@ def profiled_launches(fn, kernels):
     return counted, kernel_events(prof, kernels)
 
 
+def runner_pool_bytes(runner):
+    """Bytes of the graph pool a scan runner captured into (None before
+    its capture)."""
+    from qed_splatter_tpu_torch.engine import scan_runner
+
+    if runner._graph is None:
+        return None
+    return scan_runner.pool_bytes(runner.pool or runner._graph.pool(), "cuda")
+
+
 def dispatch_case(label, n_alive, capacity, k_cap, n, mixed, seed):
     """(a): a chunk as a CUDA graph against the per-step loop from one state,
     perm and backgrounds."""
@@ -2378,7 +2388,7 @@ def dispatch_case(label, n_alive, capacity, k_cap, n, mixed, seed):
     print(f"  case {label}: {n_alive} alive / {capacity}, K={k_cap}, "
           f"{'mixed, ' if mixed else ''}{n} steps; set-up and capture "
           f"{time.perf_counter() - t0:.2f} s, graph pool "
-          f"{runner.pool_bytes} bytes", flush=True)
+          f"{runner_pool_bytes(runner)} bytes", flush=True)
 
     e1, losses1, eager_ms = eager_chunk(runner, copy_state(state0, "cuda"),
                                         perm, bgs)
@@ -2478,7 +2488,7 @@ def dispatch_case(label, n_alive, capacity, k_cap, n, mixed, seed):
     out = {"steps": n, "loss_rel_err": err, "eager_spread": spread,
            "graph_ms_per_step": graph_ms, "eager_ms_per_step": eager_ms,
            "launches": launches, "variants": variants, "mu_err": mu_err,
-           "pool_bytes": runner.pool_bytes}
+           "pool_bytes": runner_pool_bytes(runner)}
     del runner, one, state0, g, e1, e2, g1, e1s, e2s
     torch.cuda.empty_cache()
     return out
@@ -2696,7 +2706,8 @@ def phase_dispatch(seed, profile_dir, root, per_step):
         states = mst.train()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        per_scene = {name: [r.pool_bytes for r in tr._runners.values()]
+        per_scene = {name: [runner_pool_bytes(r)
+                            for r in tr._runners.values()]
                      for name, tr in mst.trainers.items()}
         pool = scan_runner.pool_bytes(scan_runner.graph_pool("cuda"), "cuda")
         print(f"  (d) train-multi of {list(states)} in {wall:.2f} s: steps "

@@ -210,7 +210,10 @@ class TrainerConfig:
     vis: Literal["none", "tensorboard", "jsonl", "viewer", "wandb", "comet"] = "jsonl"
     viewer_port: int = 7007              # ViewerConfig (config.py:82)
     log_every: int = 10
-    profile_dir: Optional[str] = None   # torch.profiler trace of steps 10..14
+    # tracing on (tracing.py) and a torch.profiler trace of steps 10..14
+    # (per-step loop) or of the first chunk from step 10 on (multi-step
+    # dispatch), with the chunk's callbacks
+    profile_dir: Optional[str] = None
     # steps per device dispatch: 0 = auto (gcd of the cadence settings,
     # capped at 100), 1 = the per-step host loop. Multi-step dispatch
     # replays a CUDA graph of the step once per step, on a device-resident

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from qed_splatter_tpu_torch import cuda as qcuda
-from qed_splatter_tpu_torch import resolve_device
+from qed_splatter_tpu_torch import resolve_device, tracing
 from qed_splatter_tpu_torch.configs import ModelConfig
 from qed_splatter_tpu_torch.engine.densify import DensifyStats
 from qed_splatter_tpu_torch.engine.optim import GroupOptimizers
@@ -229,8 +229,11 @@ class ScanRunner:
 
     On CUDA one graph per runner; its replays add the launches its capture
     recorded to the kernels' counts (a host call counts one, a replay
-    launches without one). :attr:`pool_bytes` is the shared pool's size
-    after the capture, :attr:`captures` / :attr:`replays` count both."""
+    launches without one). :attr:`captures` / :attr:`replays` count both
+    (and, with tracing on, ``tracing.COUNTS`` the captures). With tracing
+    on, each call is a ``qed.chunk.bind`` span, a ``qed.capture`` where it
+    captures and a ``qed.chunk.replay`` span (the eager body on the
+    CPU)."""
 
     def __init__(self, step: TrainStep, dataset: DeviceDataset, n: int,
                  pool=None):
@@ -251,13 +254,14 @@ class ScanRunner:
         self._graph = None
         self._bound: Optional[List[torch.Tensor]] = None
         self._replay_launches: list = []
-        self.pool_bytes: Optional[int] = None
         self.captures = self.replays = 0
 
+    @tracing.step_body
     def _body(self, state: TrainState) -> None:
         """One step at position ``_pos`` of the chunk: the camera
         ``perm[pos]`` from the dataset, then ``TrainStep.run``, its metrics
         into row ``pos``; ``pos`` and the step counter + 1."""
+        tracing.stage("step.inputs")
         data, pos = self.dataset.data, self._pos
         sel = self._perm.index_select(0, pos)
 
@@ -285,6 +289,7 @@ class ScanRunner:
                             for k in self.names])
         self.metrics.index_copy_(0, pos, vals[None])
         pos.add_(1)
+        tracing.stage("step.end")
 
     def _bind(self, state: TrainState) -> TrainState:
         """``state`` on the tensors the graph was captured on: the first
@@ -310,7 +315,7 @@ class ScanRunner:
         """Step 1 eagerly on a side stream (the warm-up), then the capture
         of the body; neither may sync with the host, and no other thread
         may use the card meanwhile (:data:`CAPTURE_LOCK`)."""
-        with CAPTURE_LOCK:
+        with CAPTURE_LOCK, tracing.span("qed.capture", state.step):
             self._capture_locked(state)
 
     def _capture_locked(self, state: TrainState) -> None:
@@ -340,7 +345,8 @@ class ScanRunner:
             k.add(-n, {name: -c for name, c in v.items()})
         self._graph = graph
         self.captures += 1
-        self.pool_bytes = pool_bytes(self.pool or graph.pool(), self.device)
+        if tracing.enabled():
+            tracing.COUNTS["graph_captures"] += 1
 
     def __call__(self, state: TrainState, perm,
                  backgrounds: Optional[torch.Tensor] = None):
@@ -348,25 +354,29 @@ class ScanRunner:
         if perm.shape[0] != self.n:
             raise ValueError(f"perm has {perm.shape[0]} steps, the runner "
                              f"{self.n}")
-        self._perm.copy_(torch.as_tensor(perm))
-        if self.random_bg:
-            if backgrounds is None:
-                raise ValueError("a random background needs the chunk's "
-                                 "backgrounds")
-            self._bg.copy_(backgrounds)
-        self._pos.zero_()
-        self.step_counter.fill_(state.step)
+        if self.random_bg and backgrounds is None:
+            raise ValueError("a random background needs the chunk's "
+                             "backgrounds")
+        with tracing.span("qed.chunk.bind", state.step):
+            self._perm.copy_(torch.as_tensor(perm))
+            if self.random_bg:
+                self._bg.copy_(backgrounds)
+            self._pos.zero_()
+            self.step_counter.fill_(state.step)
+            if self.graphed:
+                state = self._bind(state)
         if not self.graphed:
-            for _ in range(self.n):
-                self._body(state)
+            with tracing.span("qed.chunk.replay", state.step):
+                for _ in range(self.n):
+                    self._body(state)
         else:
-            state = self._bind(state)
             replays = self.n
             if self._graph is None:
                 self._capture(state)
                 replays -= 1
-            for _ in range(replays):
-                self._graph.replay()
+            with tracing.span("qed.chunk.replay", state.step):
+                for _ in range(replays):
+                    self._graph.replay()
             self.replays += replays
             for k, n, v in self._replay_launches:
                 k.add(n * replays, {name: c * replays

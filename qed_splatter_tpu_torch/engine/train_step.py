@@ -21,6 +21,8 @@ Parameters, Adam moments and counts and the statistics are updated **in
 place**: the returned :class:`TrainState` holds the same tensors as the one
 passed in, with the next step. The body (:meth:`TrainStep.run`) is
 capture-clean, so ``engine/scan_runner.py`` replays it as a CUDA graph.
+With tracing on, the body marks its stages (``tracing.STAGES``) on the
+device.
 ``cfg.mixed_precision`` takes the
 bf16 operand compositing kernels.
 """
@@ -33,7 +35,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from qed_splatter_tpu_torch import resolve_device
+from qed_splatter_tpu_torch import resolve_device, tracing
 from qed_splatter_tpu_torch.configs import ModelConfig
 from qed_splatter_tpu_torch.engine.densify import DensifyStats, \
     accumulate_stats_
@@ -230,8 +232,10 @@ class TrainStep:
         """Loss and raw gradients of one step; touches no state."""
         return self._grads(state, self.inputs(batch, generator, state.step))
 
+    @tracing.step_body
     def _grads(self, state: TrainState, inp: StepInputs) -> StepGrads:
         cfg = self.cfg
+        tracing.stage("render.project")
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.trainable_dict().items()}
         cam = state.camera_opt.detach().requires_grad_(True)
@@ -272,6 +276,7 @@ class TrainStep:
             tv = 10.0 * total_variation_loss(grids)
             losses = dict(losses, tv_loss=tv)
             loss = loss + tv
+        loss, = tracing.stage_outputs("loss.other", loss)
         inputs = ([*leaves.values(), cam]
                   + ([grids] if grids is not None else [])
                   + ([side] if side is not None else []))
@@ -290,6 +295,7 @@ class TrainStep:
                                          losses.items()},
                          out, g_params, g_cam, absgrad, g_grids)
 
+    @tracing.step_body
     def run(self, state: TrainState, inp: StepInputs) -> Dict:
         """The step's body: updates ``state``'s tensors and ``inp.step`` in
         place and returns the metrics (0-d device tensors)."""
@@ -297,11 +303,13 @@ class TrainStep:
         sg = self._grads(state, inp)
         g_params, g_cam, g_grids = sg.params, sg.camera_opt, \
             sg.bilateral_grids
+        tracing.stage("step.stats")
         if sg.absgrad is not None:
             accumulate_stats_(state.stats, sg.absgrad, sg.out.radii,
                               self.max_hw)
 
         with torch.no_grad():
+            tracing.stage("step.optimizer")
             # gradient hygiene before any optimizer state is touched
             nonfinite = None
             if cfg.sanitize_grads:
@@ -329,6 +337,7 @@ class TrainStep:
                                          state.bilateral_grids, g_grids,
                                          state.bilateral_grid_state)
 
+            tracing.stage("step.metrics")
             out = sg.out
             metrics = dict(sg.losses)
             metrics["loss"] = sg.loss
@@ -343,9 +352,11 @@ class TrainStep:
             inp.step.add_(1)
         return metrics
 
+    @tracing.step_body
     def __call__(self, state: TrainState, batch: Dict,
                  generator: Optional[torch.Generator]):
         metrics = self.run(state, self.inputs(batch, generator, state.step))
+        tracing.stage("step.end")
         return dataclasses.replace(state, step=state.step + 1), metrics
 
 

@@ -42,10 +42,25 @@ Both share:
   when it ran in a child process (``--supervise``);
 - the wall ms of each growth and each refine (with its opacity reset and
   growth check) in their metrics rows;
-- with ``profile_dir``, a ``torch.profiler`` trace (CPU and, on CUDA, the
-  device) of steps start + 10 to start + 14 of each :meth:`Trainer.train`
-  call on the per-step loop, the JAX trainer's window, written as a Chrome
-  trace beside a ``key_averages`` table;
+- with ``profile_dir``, tracing on (``tracing.py``: the step's stage marks,
+  the host spans, the counters below) inside each :meth:`Trainer.train`
+  call, as it was after, and a ``torch.profiler`` trace (CPU
+  and, on CUDA, the device) of part of each :meth:`Trainer.train` call,
+  written as a Chrome trace beside a ``key_averages`` table: on the
+  per-step loop steps start + 10 to start + 14, the JAX trainer's window;
+  on multi-step dispatch the first chunk that starts at or after start +
+  10, with its callbacks;
+- with tracing on, spans on the profiler's clock around each
+  :meth:`Trainer.train` call (``qed.train``), each chunk (``qed.chunk``:
+  ``qed.chunk.host`` before the dispatch and from the
+  metrics read on, ``qed.chunk.bind``, ``qed.capture``,
+  ``qed.chunk.replay``) and the host work between chunks (``qed.adapt``,
+  ``qed.refine`` with ``.grow_check``, ``.densify`` and ``.reset``,
+  ``qed.eval_image``, ``qed.state_finite``, ``qed.save``), and each
+  chunk's counters (graph captures, device allocations and allocation
+  retries since the previous chunk's read, or the start of the
+  :meth:`Trainer.train` call) in its ``train`` row and its second
+  ``qed.chunk.host`` span's arguments;
 - the attempt journal (``engine/journal.py``): the first dispatch of each
   new step, graph, refine or eval configuration is recorded before it runs
   and marked ok after it completed, and a start refuses what a previous
@@ -97,7 +112,7 @@ import numpy as np
 import torch
 
 from qed_splatter_tpu_torch import cuda as qcuda
-from qed_splatter_tpu_torch import resolve_device
+from qed_splatter_tpu_torch import resolve_device, tracing
 from qed_splatter_tpu_torch.configs import TrainerConfig
 from qed_splatter_tpu_torch.data.dataset import FullImageDatamanager
 from qed_splatter_tpu_torch.engine import checkpoint as ckpt
@@ -198,6 +213,8 @@ class Trainer:
         self.mesh = self._join_mesh(config, device)
         self.device = (self.mesh.device if self.mesh is not None
                        else resolve_device(device))
+        # the counters at the last chunk's metrics read (tracing on)
+        self._counts: Optional[Dict[str, int]] = None
         # rank 0 writes metrics, journal and checkpoints, evals and serves
         self.is_writer = self.mesh is None or self.mesh.rank == 0
         host, hosts = host_of_job()
@@ -606,14 +623,17 @@ class Trainer:
 
     def _refine(self, cur: int, max_hw: int):
         s = self.state
-        params, opt_state, stats, info = self._dispatch_journaled(
-            dict(kind="refine", capacity=s.params.capacity,
-                 max_hw=int(max_hw)),
-            lambda: refine(s.params, s.opt_state, s.stats, s.step, self.cfg,
-                           num_train_data=self.dm.num_train, max_hw=max_hw,
-                           generator=self._generator(cur, 1)))
-        params, opt_state = maybe_reset_opacities(params, opt_state, s.step,
-                                                  self.cfg)
+        with tracing.span("qed.refine.densify", cur):
+            params, opt_state, stats, info = self._dispatch_journaled(
+                dict(kind="refine", capacity=s.params.capacity,
+                     max_hw=int(max_hw)),
+                lambda: refine(s.params, s.opt_state, s.stats, s.step,
+                               self.cfg, num_train_data=self.dm.num_train,
+                               max_hw=max_hw,
+                               generator=self._generator(cur, 1)))
+        with tracing.span("qed.refine.reset", cur):
+            params, opt_state = maybe_reset_opacities(params, opt_state,
+                                                      s.step, self.cfg)
         self.state = dataclasses.replace(s, params=params,
                                          opt_state=opt_state, stats=stats)
         return info
@@ -623,35 +643,44 @@ class Trainer:
         cfgt = self.config
         if (cur > self.cfg.warmup_length and cur % self.cfg.refine_every == 0
                 and cur >= self._densify_frozen_until):
-            t0 = time.perf_counter()
-            # under a mesh every rank refines the gathered state alike
-            self.state = self._full_state()
-            self._maybe_grow(cur, max_hw)
-            try:
-                info = self._refine(cur, max_hw)
-            except Exception as e:
-                # the canary is set by this cadence's growth only
-                if self._canary is None or not self._canary_reverts(e):
-                    raise
-                self._revert_growth(cur, e)
-                info = self._refine(cur, max_hw)
-            if self.mesh is not None:
-                self.state = shard_state(self.state, self.mesh)
-            self.writer.write(cur, {**info._asdict(), "ms": (
-                time.perf_counter() - t0) * 1e3}, prefix="refine")
+            with tracing.span("qed.refine", cur):
+                self._refine_cadence(cur, max_hw)
         d = self._downscale_factor(cur)
         if cfgt.steps_per_eval_image and cur % cfgt.steps_per_eval_image == 0:
-            self._eval_as_writer(self.eval_image, cur, d)
+            with tracing.span("qed.eval_image", cur):
+                self._eval_as_writer(self.eval_image, cur, d)
         if cfgt.steps_per_eval_batch and cur % cfgt.steps_per_eval_batch == 0:
             self._eval_as_writer(self.eval_batch, cur, d)
         if (cfgt.steps_per_eval_all_images
                 and cur % cfgt.steps_per_eval_all_images == 0):
             self._eval_as_writer(self.eval_all, cur, 1)
         if cfgt.steps_per_save and cur % cfgt.steps_per_save == 0:
-            self._save(self.run_dir / "ckpts", cur)
-            # a rollback target only if the params are finite
-            if self._state_finite():
-                self._good_ckpt = cur
+            with tracing.span("qed.save", cur):
+                self._save(self.run_dir / "ckpts", cur)
+                # a rollback target only if the params are finite
+                if self._state_finite():
+                    self._good_ckpt = cur
+
+    def _refine_cadence(self, cur: int, max_hw: int) -> None:
+        """The growth check, refine and opacity reset of step ``cur``, with
+        their wall ms in a ``refine`` row."""
+        t0 = time.perf_counter()
+        # under a mesh every rank refines the gathered state alike
+        self.state = self._full_state()
+        with tracing.span("qed.refine.grow_check", cur):
+            self._maybe_grow(cur, max_hw)
+        try:
+            info = self._refine(cur, max_hw)
+        except Exception as e:
+            # the canary is set by this cadence's growth only
+            if self._canary is None or not self._canary_reverts(e):
+                raise
+            self._revert_growth(cur, e)
+            info = self._refine(cur, max_hw)
+        if self.mesh is not None:
+            self.state = shard_state(self.state, self.mesh)
+        self.writer.write(cur, {**info._asdict(), "ms": (
+            time.perf_counter() - t0) * 1e3}, prefix="refine")
 
     def _save(self, ckpt_dir: Path, step: int) -> Optional[Path]:
         """A checkpoint of the whole state (rank 0's, under a mesh)."""
@@ -667,12 +696,13 @@ class Trainer:
     def _state_finite(self) -> bool:
         """The params canary: a fully poisoned model renders pure
         background with a finite loss, so the loss alone is not enough."""
-        p = self.state.params
-        s = (p.means.sum() + p.scales.sum() + p.quats.sum()
-             + p.opacities.sum() + self.state.camera_opt.sum())
-        if self.mesh is not None:   # one answer on every rank
-            s = self.mesh.all_reduce(s, "mesh")
-        return bool(torch.isfinite(s))
+        with tracing.span("qed.state_finite", self.state.step):
+            p = self.state.params
+            s = (p.means.sum() + p.scales.sum() + p.quats.sum()
+                 + p.opacities.sum() + self.state.camera_opt.sum())
+            if self.mesh is not None:   # one answer on every rank
+                s = self.mesh.all_reduce(s, "mesh")
+            return bool(torch.isfinite(s))
 
     def _handle_divergence(self, step: int) -> int:
         """Non-finite loss or params after ``step``: a post-mortem
@@ -869,7 +899,32 @@ class Trainer:
         start_step = self.state.step
         t0 = time.perf_counter()
         step = start_step
+        self._counts = (tracing.counters(self.device) if tracing.enabled()
+                        else None)
+        # the profiler's window: the first chunk that starts at or after
+        # start + 10, with its callbacks
+        prof, traced = None, not cfgt.profile_dir or not self.is_writer
         while step < total:
+            if prof is not None:
+                self._stop_profile(prof, prof_from, step)
+                prof = None
+            if not traced and step >= start_step + 10:
+                # a replayed chunk runs few host operators: their shapes
+                # cost little, and the spans' arguments come with them
+                prof, traced, prof_from = self._start_profile(True), True, step
+            with tracing.span("qed.chunk", step):
+                step = self._scan_chunk(step, total, chunk)
+        if prof is not None:
+            self._stop_profile(prof, prof_from, step)
+        self._report(total - start_step, t0, f", chunk={chunk}")
+        if finalize:
+            self.finalize(total)
+        return self.state
+
+    def _scan_chunk(self, step: int, total: int, chunk: int) -> int:
+        """One chunk from ``step`` and the host work after it; returns the
+        step to go on from."""
+        with tracing.span("qed.chunk.host", step):
             self._viewer_gate()
             n = min(chunk, total - step)
             d = self._downscale_factor(step)
@@ -882,49 +937,56 @@ class Trainer:
                         d=int(d), k=int(self.cfg.max_per_tile), chunk=int(n),
                         tpg=int(self.cfg.small_tiles_per_gaussian),
                         absgrad=bool(step < self.cfg.stop_split_at))
-            try:
-                self.state, metrics = self._dispatch_journaled(
-                    jrec, runner, self.state, perm,
-                    self._backgrounds(step, n))
-            except Exception as e:
-                if self._canary is None or not self._canary_reverts(e):
-                    raise
-                refine_at = self._canary[3:]
-                self._revert_growth(step, e)
-                info = self._refine(*refine_at)
-                self.writer.write(refine_at[0], info._asdict(),
-                                  prefix="refine")
-                continue
+            bgs = self._backgrounds(step, n)
+        try:
+            self.state, metrics = self._dispatch_journaled(
+                jrec, runner, self.state, perm, bgs)
+        except Exception as e:
+            if self._canary is None or not self._canary_reverts(e):
+                raise
+            refine_at = self._canary[3:]
+            self._revert_growth(step, e)
+            info = self._refine(*refine_at)
+            self.writer.write(refine_at[0], info._asdict(), prefix="refine")
+            return step
+        first, step = step, step + n
+        delta = {}
+        if tracing.enabled():
+            # what ran since the previous chunk's read: its callbacks, this
+            # chunk's capture and replays
+            now = tracing.counters(self.device)
+            if self._counts is not None:
+                delta = {k: v - self._counts.get(k, 0) for k, v in now.items()}
+            self._counts = now
+        with tracing.span("qed.chunk.host", first, *delta.values()):
             self._canary = None
-            step += n
             self._test_crash_hook(step)
             # one host read per chunk; reductions over the chunk, not only
             # its last step, so a spike or a first NaN inside it shows
             marr = dict(zip(runner.names, metrics.cpu().numpy().T))
             marr.pop("cam_idx")
-            last = {k: float(v[-1]) for k, v in marr.items()}
-            last["gaussian_count"] = int(self.state.params.num_alive())
-            last["loss_max"] = float(np.max(marr["loss"]))
-            if "nonfinite_grads" in marr:
-                last["nonfinite_grads"] = float(np.sum(
-                    marr["nonfinite_grads"]))
-            self._maybe_adapt_k(float(np.max(marr["tile_overflow"])),
-                                float(np.max(marr["tile_max_count"])),
-                                ds.width, ds.height, d)
-            self._maybe_adapt_tpg(last.get("bbox_truncated"), d)
-            self.writer.write(step, last, prefix="train")
+            with tracing.span("qed.adapt", first):
+                last = {k: float(v[-1]) for k, v in marr.items()}
+                last["gaussian_count"] = int(self.state.params.num_alive())
+                last["loss_max"] = float(np.max(marr["loss"]))
+                if "nonfinite_grads" in marr:
+                    last["nonfinite_grads"] = float(np.sum(
+                        marr["nonfinite_grads"]))
+                last.update(delta)
+                self._maybe_adapt_k(float(np.max(marr["tile_overflow"])),
+                                    float(np.max(marr["tile_max_count"])),
+                                    ds.width, ds.height, d)
+                self._maybe_adapt_tpg(last.get("bbox_truncated"), d)
+                self.writer.write(step, last, prefix="train")
             if self.viewer is not None:
                 self.viewer.update(self.state.params, step, metrics=last)
             if (not bool(np.isfinite(marr["loss"]).all())
                     or not self._state_finite()):
                 step = self._handle_divergence(step)
                 self._reseed_sampling()
-                continue
+                return step
             self._callbacks(step, max(ds.width, ds.height))
-        self._report(total - start_step, t0, f", chunk={chunk}")
-        if finalize:
-            self.finalize(total)
-        return self.state
+        return step
 
     def _report(self, done: int, t0: float, extra: str = "") -> None:
         if done > 0:
@@ -938,10 +1000,13 @@ class Trainer:
               finalize: bool = True) -> TrainState:
         """Train to ``max_steps`` (default: the configured budget), then
         ``finalize`` unless told not to; multi-step dispatch where
-        :meth:`_use_scan` picks it, else the per-step loop."""
-        if self._use_scan():
-            return self._train_scan(max_steps, finalize)
-        return self._train_per_step(max_steps, finalize)
+        :meth:`_use_scan` picks it, else the per-step loop; with
+        ``profile_dir``, tracing on for the call."""
+        with tracing.on(bool(self.config.profile_dir)), \
+                tracing.span("qed.train", self.state.step):
+            if self._use_scan():
+                return self._train_scan(max_steps, finalize)
+            return self._train_per_step(max_steps, finalize)
 
     def _train_per_step(self, max_steps: Optional[int] = None,
                         finalize: bool = True) -> TrainState:
@@ -1038,13 +1103,15 @@ class Trainer:
             self.finalize(total)
         return self.state
 
-    def _start_profile(self):
+    def _start_profile(self, record_shapes: bool = False):
+        """A started profiler; ``record_shapes`` keeps the spans' arguments
+        (and every operator's input shapes) in its trace."""
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
+        prof = profile(activities=acts, record_shapes=record_shapes)
         prof.start()
         return prof
 

@@ -9,7 +9,9 @@ serving path (an eval, an orbit render or a viewer frame) and runs without
 autograd. With ``train=True`` it is the first half of the training step:
 differentiable, with splatfacto's random background drawn from a
 ``torch.Generator`` and the absgrad side channel. On CUDA tensors the
-hand-written kernels run; on CPU tensors their plain versions.
+hand-written kernels run; on CPU tensors their plain versions. Inside the
+training step's body, with tracing on, :func:`render` and :func:`total_loss`
+mark their stages (``tracing.STAGES``).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from qed_splatter_tpu_torch import resolve_device
+from qed_splatter_tpu_torch import resolve_device, tracing
 from qed_splatter_tpu_torch.configs import ModelConfig
 from qed_splatter_tpu_torch.models.gaussians import GaussianParams
 from qed_splatter_tpu_torch.ops.camera import get_viewmat
@@ -148,7 +150,13 @@ def _render(params, c2w, K, width, height, cfg, step, train, crop_box,
     )
     # dead capacity slots never rasterize
     radii = torch.where(alive, proj.radii[0], 0).to(torch.int32)
+    m2d, depths, conics, comp, campos = tracing.stage_outputs(
+        "render.project", proj.means2d, proj.depths, proj.conics,
+        proj.compensations, campos)
+    proj = proj._replace(means2d=m2d, depths=depths, conics=conics,
+                         compensations=comp)
 
+    tracing.stage("render.sh")
     if cfg.sh_degree > 0:
         deg = active_sh_degree(step, cfg.sh_degree, cfg.sh_degree_interval)
         coeffs = torch.cat(
@@ -165,8 +173,10 @@ def _render(params, c2w, K, width, height, cfg, step, train, crop_box,
     channels = rgb_g
     if render_depth:
         channels = torch.cat([rgb_g, proj.depths[0][:, None]], dim=-1)
+    channels, opac = tracing.stage_outputs("render.sh", channels, opac)
 
     # the binning is integer work: it takes no gradient
+    tracing.stage("render.bin")
     binning = bin_gaussians(
         proj.means2d[0].detach(),
         radii,
@@ -181,6 +191,7 @@ def _render(params, c2w, K, width, height, cfg, step, train, crop_box,
         with_id_lists=not cfg.use_pallas,
         use_pallas=None if cfg.use_pallas else False,
     )
+    tracing.stage("render.composite")
     if cfg.use_pallas:
         out = rasterize_tiles_pallas(
             binning.tile_ranks,
@@ -222,6 +233,7 @@ def _render(params, c2w, K, width, height, cfg, step, train, crop_box,
         # where nothing rendered, fall back to the (detached) max depth
         far = depth.max().detach()
         depth = torch.where(out.alpha > 0, depth, far)
+    rgb, depth = tracing.stage_outputs("render.composite", rgb, depth)
 
     counts = binning.tile_counts
     return RenderOutputs(
@@ -305,8 +317,11 @@ def total_loss(
     counter: the regularizer is then gated by ``torch.where``, with the
     same value and gradient). ``ssim_bands`` as in :func:`photometric_loss`."""
     losses = {}
-    losses["main_loss"] = photometric_loss(
-        outputs.rgb, gt_rgb, cfg.ssim_lambda, mask, ssim_bands)
+    tracing.stage("loss.ssim")
+    main = photometric_loss(outputs.rgb, gt_rgb, cfg.ssim_lambda, mask,
+                            ssim_bands)
+    losses["main_loss"], = tracing.stage_outputs("loss.ssim", main)
+    tracing.stage("loss.other")
     if cfg.use_scale_regularization:
         if isinstance(step, torch.Tensor):
             losses["scale_reg"] = torch.where(

@@ -102,7 +102,7 @@ def test_port_has_its_kernel_sources():
     srcs = sorted(p.name for p in (ROOT / "qed_splatter_tpu_torch" / "csrc")
                   .glob("*.cu"))
     assert srcs == ["composite.cu", "composite_bwd.cu", "copy_rows.cu",
-                    "slab_gather.cu"]
+                    "slab_gather.cu", "stage_mark.cu"]
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
