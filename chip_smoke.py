@@ -11,8 +11,7 @@ Phases (any failure exits non-zero):
    K = 256, an odd K and chunked at K = 2048, where it must stop at the
    count (slots past it poisoned with NaN change nothing) and hand the
    backward, bit for bit, the transmittance the plain version carries; the
-   window gather in both of its modes (the plain gather, and the gather
-   fused with the rank mask) at K = 256, 1024, 2048 and an odd K;
+   window gather at K = 256, 1024, 2048 and an odd K;
 2b. hold the compositing backward kernel, fed by the forward kernel's
    transmittance, against its plain version on random slabs and cotangents,
    unchunked (K = 256) and chunked (K = 2048, chunk 2 composited on some
@@ -29,6 +28,14 @@ Phases (any failure exits non-zero):
    kernels are also held bit-equal to their witness build, which takes the
    intrinsics (logf, __float2int_rn, __int2float_rn, __float2bfloat16_rn)
    in place of ``csrc/mixed.cuh``'s exact forms;
+binning. the binning's kernel set (``csrc/binning.cu``: count, scan,
+   place, emit) at the three benchmark cells' shapes (960x540 at K = 4096,
+   1296x840 at K = 2048 and 1024; 1,000,000 alive rows of 2,097,152, pair
+   budget 64): every output integer-equal to the plain path, one launch of
+   each kernel a frame, the kernels' time (graph replays) and each one's
+   (``torch.profiler``) beside their bound (the rows read once and the
+   [T, K] ranks written once, at 3.35 TB/s), the plain path's time and the
+   pairs a frame;
 3. scene A (the bench's canonical point): 131,072 capacity / 80,000 alive,
    SH degree 3, K = 256, 1296x840, 4 orbit cameras through
    ``render(train=False)``;
@@ -103,8 +110,8 @@ pipeline. the tools a user runs before and after training, through
    an eval frame against the CPU; ``render`` at 1296x840 in its three
    modes (orbit with depth, the eval cameras, a 4-keyframe camera path),
    frame 0 of each within one level of the plain path on 99.9% of pixels,
-   and the CLI's launches of the compositing forward and the gather as a
-   ``kernels`` row; ``export`` as .ply, .splat, point cloud and a cropped
+   and the CLI's launches of the compositing forward and the binning as
+   ``kernels`` rows; ``export`` as .ply, .splat, point cloud and a cropped
    .ply, each read back and counted.
 codec. the host core's image decoding: a room frame written with every row
    Paeth and every row Average, decoded by the core and by the plain row
@@ -131,7 +138,7 @@ forest. BASELINE config #4: the forest (``testing.write_forest_dataset``,
    and depth abs_rel lower; the final K, the last ``tile_overflow`` against
    the escalator's threshold 0.10 T K, refine and growth ms, the journal,
    and the child's kernel launches (``kernel_launches.json``); then on the
-   final checkpoint the compositing forward and the gather held on an eval
+   final checkpoint the compositing forward and the binning held on an eval
    frame, and one step's gradients and the backward kernel on a training
    frame, against their plain versions.
 sharded. ``parallel/*`` through gloo ranks sharing cuda:0 (one card:
@@ -162,7 +169,8 @@ each kernel against its plain version on that run's own inputs; and times
 the frame or step, each kernel, its plain version and its bound. The window
 gather runs for microseconds, less than a launch costs the host, so its
 times (kernel, plain version and library call alike) are taken from replays
-of a captured CUDA graph; so is the compositing forward's, whose 0.2 ms is
+of a captured CUDA graph; so are the binning kernels' (four launches) and
+the compositing forward's, whose 0.2 ms is
 of the order of what its differentiable entry point costs the host. A
 step's gradients are held against the plain path on the state after the
 steps and on the scene before any step; a pixel within rounding of a kink
@@ -174,9 +182,9 @@ Prints the bench line, the tools' times, ``render_ms_per_frame`` /
 ``pipeline`` / ``codec`` / ``bilateral`` / ``viewer`` / ``forest`` /
 ``sharded`` and ``kernels`` JSON lines, each phase's wall time,
 the card's name and power limit, and as the last line
-``{"ok": true, "device": {...}}``. The gather's row in ``kernels`` is its
-rank mode, the one the main path launches; the gather mode's numbers are
-under that row's ``gather_mode`` key. Needs CUDA; imports no JAX.
+``{"ok": true, "device": {...}}``. The binning's rows in ``kernels`` count
+the emit kernel's launches (one a frame, as each of the set's). Needs
+CUDA; imports no JAX.
 """
 
 from __future__ import annotations
@@ -226,6 +234,9 @@ REPLACES = {
     "slab_gather": "qed_splatter_tpu/ops/tiles.py:67 _slab_kernel",
     "slab_gather_i32": "tools/bench_gather.py:102 slab_kernel",
     "copy_rows": "tools/bench_gather3.py:46 pallas_copy.kern",
+    "binning": ("qed_splatter_tpu_torch/ops/tiles.py's dense expansion and "
+                "sort; qed_splatter_tpu/ops/tiles.py:67 _slab_kernel's rank "
+                "mode"),
 }
 CSRC = "qed_splatter_tpu_torch/csrc"
 SOURCES = {"composite": f"{CSRC}/composite.cu",
@@ -236,7 +247,8 @@ SOURCES = {"composite": f"{CSRC}/composite.cu",
            "composite_bwd_mixed_chunked": f"{CSRC}/composite_bwd.cu",
            "slab_gather": f"{CSRC}/slab_gather.cu",
            "slab_gather_i32": f"{CSRC}/slab_gather.cu",
-           "copy_rows": f"{CSRC}/copy_rows.cu"}
+           "copy_rows": f"{CSRC}/copy_rows.cu",
+           "binning": f"{CSRC}/binning.cu"}
 TRAIN_STEPS_WARM, TRAIN_STEPS_TIMED = 3, 20
 # the witness build of both mixed kernels: the intrinsics (logf,
 # __float2int_rn, __int2float_rn, __float2bfloat16_rn) in place of
@@ -488,19 +500,114 @@ def phase_kernel_parity(gen):
                               device="cuda")
     n_odd = int((starts & 1).sum())
     for k in (256, 1024, 2048, 333):
-        counts = torch.randint(0, 2 * k, (t,), generator=gen, device="cuda",
-                               dtype=torch.int32)
-        counts[6:10] = torch.tensor([0, 1, k, k + 1], device="cuda",
-                                    dtype=torch.int32)
         got = tiles.slab_gather(keys, starts, k, -1)
         want = tiles.slab_gather_ref(keys, starts, k, -1)
         check(torch.equal(got, want), f"slab_gather K={k} exact (starts 0, "
               f"M, past M, negative, M - 7; {n_odd} odd starts)")
-        got = tiles.slab_ranks(keys, starts, counts, k, 18)
-        want = tiles.slab_ranks_ref(keys, starts, counts, k, 18)
-        check(torch.equal(got, want), f"slab_gather rank mode K={k} exact "
-              "(counts 0, 1, K, past K)")
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------------- phase binning
+
+# the benchmark cells' binning shapes: (label, width, height, K); each frame
+# 1,000,000 alive rows in a capacity of 2,097,152, pair budget 64
+BIN_CELLS = (("forest", 960, 540, 4096), ("room late", 1296, 840, 2048),
+             ("room densify", 1296, 840, 1024))
+BIN_CAPACITY, BIN_ALIVE = 2_097_152, 1_000_000
+
+
+def binning_inputs(width, height, seed):
+    """Splats spread over the image, radii log-normal about 8 px (about 10
+    tiles a splat: 600-1000 pairs a pixel, as in the cells' states), random
+    depths; the rows past BIN_ALIVE culled."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    size = torch.tensor([width, height], device="cuda", dtype=torch.float32)
+    m2d = torch.rand((BIN_CAPACITY, 2), generator=g, device="cuda") * size
+    r = torch.exp(math.log(8.0) + 0.8 * torch.randn(
+        BIN_CAPACITY, generator=g, device="cuda")).round().clamp(1, 400)
+    alive = torch.arange(BIN_CAPACITY, device="cuda") < BIN_ALIVE
+    radii = torch.where(alive, r, 0).to(torch.int32)
+    depths = 0.5 + 20 * torch.rand(BIN_CAPACITY, generator=g, device="cuda")
+    return m2d, radii, depths
+
+
+def bin_kernel_ms(fn, reps):
+    """Device ms a call of each binning kernel, from ``torch.profiler``
+    over ``reps`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = re.search(r"bin_\w+_kernel(<\w+>)?", e.key)
+        if name and e.device_time_total > 0:
+            out[name.group(0)] = e.device_time_total / 1e3 / reps
+    return out
+
+
+def phase_binning(seed):
+    """The binning kernel set (``csrc/binning.cu``) at each benchmark cell's
+    shape: integer-equal to the plain path, one launch of each kernel a
+    frame, its time beside its bound and the plain path's."""
+    from qed_splatter_tpu_torch.ops import tiles
+
+    print("phase binning: count, scan, place and emit at the cells' shapes",
+          flush=True)
+    entries, rows = [], {}
+    for label, width, height, k in BIN_CELLS:
+        m2d, radii, depths = binning_inputs(width, height, seed)
+        kw = dict(max_per_tile=k, max_tiles_per_gaussian=64,
+                  small_tiles_per_gaussian=64, with_id_lists=False)
+        for kern in tiles.BIN_KERNELS:
+            kern.reset()
+        got = tiles.bin_gaussians(m2d, radii, depths, width, height, **kw)
+        torch.cuda.synchronize()
+        launches = {kern.symbol: kern.launches for kern in tiles.BIN_KERNELS}
+        check(set(launches.values()) == {1},
+              f"binning {label}: one launch of each kernel a frame")
+        want = tiles.bin_gaussians(m2d, radii, depths, width, height,
+                                   use_pallas=False, **kw)
+        for f in ("order", "tile_counts", "num_truncated", "tile_ranks"):
+            check(torch.equal(getattr(got, f), getattr(want, f)),
+                  f"binning {label}: {f} equal to the plain path")
+        del want
+        t = got.tile_counts.numel()
+        pairs = int(got.tile_counts.sum())
+        kept = int(got.tile_counts.clamp(max=k).sum())
+        full = int((got.tile_counts >= k).sum())
+        cols = torch.cat([m2d, radii[:, None].float()], -1)[got.order]
+        spec = (16, got.num_tiles_x, got.num_tiles_y, k, 64, 64, 0)
+        ms = graph_ms(lambda: tiles._bin_kernels(cols, *spec), 20)
+        ms_all = graph_ms(lambda: tiles.bin_gaussians(
+            m2d, radii, depths, width, height, **kw), 20)
+        plain = cuda_ms(lambda: tiles.bin_gaussians(
+            m2d, radii, depths, width, height, use_pallas=False, **kw), 2)
+        per_kernel = bin_kernel_ms(lambda: tiles._bin_kernels(cols, *spec),
+                                   10)
+        # the least the card could do: read each row once, write the output
+        bound_b = (BIN_CAPACITY * 12 + t * k * 8) / PEAK_BYTES_PER_S * 1e3
+        each = ", ".join(f"{n} {v:.4f}" for n, v in per_kernel.items())
+        print(f"  binning {label} ({width}x{height}, T={t}, K={k}): kernels "
+              f"{ms:.4f} ms ({each}), "
+              f"whole binning {ms_all:.4f} ms, plain {plain:.3f} ms; bound "
+              f"{bound_b:.4f} ms (bytes), {ms / bound_b:.2f}x; pairs "
+              f"{pairs}, kept {kept}, tiles at K {full} of {t}; launches "
+              f"{launches}")
+        rows[label] = {"ms": ms, "whole_binning_ms": ms_all,
+                       "plain_ms": plain, "bound_ms": bound_b,
+                       "per_kernel_ms": per_kernel, "pairs": pairs,
+                       "kept": kept, "tiles_at_k": full, "tiles": t}
+        entries.append(entry("binning", f"{label}, {width}x{height}, K={k}",
+                             launches["qed_bin_emit"], 0.0, ms, plain, None,
+                             bound_b, 0.0))
+        del got, cols, m2d, radii, depths
+        torch.cuda.empty_cache()
+    return entries, rows
 
 
 # --------------------------------------------------------------- phase 2b
@@ -963,19 +1070,20 @@ class Capture:
 
 
 def frame_kernel_entries(params, c2w, K, width, height, cfg, step, label_k,
-                         launches, ranked):
-    """The ``kernels`` rows of the compositing forward and the window gather
-    (its rank mode) for one frame of ``render(train=False)``: each kernel
-    held against its plain version and timed, with the plain version and
-    the library form, on that frame's own inputs. ``launches`` are the main
-    path's counts by kernel, ``ranked`` the gather's rank-mode launches."""
+                         launches):
+    """The ``kernels`` rows of the compositing forward and the binning's
+    kernel set for one frame of ``render(train=False)``: each held against
+    its plain version and timed, with the plain version (and the library
+    form where there is one), on that frame's own inputs. ``launches`` are
+    the main path's counts by kernel ("composite", "binning": the emit
+    kernel's, one a binning)."""
     from qed_splatter_tpu_torch.models.splatfacto import render
     from qed_splatter_tpu_torch.ops import rasterize_pallas as rp
     from qed_splatter_tpu_torch.ops import tiles
 
     # --- the kernels on this frame's own inputs
     with Capture(rp, "composite_tiles_chunked") as cap_c, \
-            Capture(tiles, "slab_ranks") as cap_g:
+            Capture(tiles, "_bin_kernels") as cap_g:
         render(params, c2w, K, width, height, cfg, step=step)
     torch.cuda.synchronize()
     g_args, g_kw = cap_c.args, cap_c.kwargs
@@ -1004,17 +1112,6 @@ def frame_kernel_entries(params, c2w, K, width, height, cfg, step, label_k,
         print(f"  tiles that skipped a chunk: {int(skipped.sum())} of {t} "
               f"({skip_count} by count, {skip_sat} saturated)")
 
-    keys, starts, g_counts, kk, rank_bits = cap_g.args
-    fill = -1
-    got = tiles.slab_ranks(keys, starts, g_counts, kk, rank_bits)
-    want = tiles.slab_ranks_ref(keys, starts, g_counts, kk, rank_bits)
-    check(torch.equal(got, want), "slab_gather rank mode on frame inputs "
-          "exact")
-    got = tiles.slab_gather(keys, starts, kk, fill)
-    want = tiles.slab_gather_ref(keys, starts, kk, fill)
-    check(torch.equal(got, want), "slab_gather on frame inputs exact")
-    del got, want
-
     # the kernel alone (replays of a captured graph), and the differentiable
     # entry point launched from the host, whose cost per call is of the
     # kernel's order
@@ -1027,85 +1124,37 @@ def frame_kernel_entries(params, c2w, K, width, height, cfg, step, label_k,
     in_bytes = sum(x.numel() * 4 for x in g_args[:4]) + counts.numel() * 4
     out_bytes = (out.numel() + acc.numel()) * 4
     ops = 256 * needed_slots(counts, runs, k, k_chunk) * fwd_ops_per_pair(d)
-    b_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
+    b_bytes_c = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
     b_ops = ops / PEAK_F32_PER_S * 1e3
 
-    # the gather runs for microseconds, less than a launch costs the host:
-    # its times are the device's own (replays of a captured CUDA graph);
-    # the host-issued times of the wrapper and the library call are printed
-    m = keys.numel()
-    padded = torch.cat([keys, torch.full((kk,), fill, dtype=keys.dtype,
-                                         device="cuda")])
-    windows = padded.unfold(0, kk, 1)              # a view, no copy
-    st = starts.clamp(0, m)
-    k_idx = torch.arange(kk, device="cuda")[None, :]
-    cap_counts = g_counts.clamp(max=kk)[:, None]
-    mask = (1 << rank_bits) - 1
-    minus = torch.full((starts.numel(), kk), -1, dtype=torch.int64,
-                       device="cuda")
-
-    def lib_ranks():
-        # one library gather, then the rank mask in three elementwise calls
-        slabs = torch.index_select(windows, 0, st)
-        return torch.where(k_idx < cap_counts, slabs & mask, minus)
-
-    check(torch.equal(lib_ranks(), tiles.slab_ranks(
-        keys, starts, g_counts, kk, rank_bits)), "the library form of the "
-        "rank mode agrees")
-    calls = {
-        "gather": lambda: tiles.slab_gather(keys, starts, kk, fill),
-        "gather_plain": lambda: tiles.slab_gather_ref(keys, starts, kk, fill),
-        "gather_lib": lambda: torch.index_select(windows, 0, st),
-        "ranks": lambda: tiles.slab_ranks(keys, starts, g_counts, kk,
-                                          rank_bits),
-        "ranks_plain": lambda: tiles.slab_ranks_ref(keys, starts, g_counts,
-                                                    kk, rank_bits),
-        "ranks_lib": lib_ranks,
-    }
-    host = {name: cuda_ms(fn, 50) for name, fn in calls.items()}
-    before = tiles.SLAB_GATHER.launches
-    dev = {name: graph_ms(fn, 20) for name, fn in calls.items()}
-    check(tiles.SLAB_GATHER.launches > before, "the captured graphs hold "
-          "the wrapper's own launches")
-    ms_g, plain_g, lib_g = dev["gather"], dev["gather_plain"], dev["gather_lib"]
-    ms_r, plain_r, lib_r = dev["ranks"], dev["ranks_plain"], dev["ranks_lib"]
-    g_bytes = (m + starts.numel() + starts.numel() * kk) * 8
-    # rank mode reads only the keys below each tile's count
-    r_read = int(torch.minimum(g_counts.long().clamp(min=0, max=kk),
-                               (m - st)).sum())
-    r_bytes = (r_read + starts.numel() + starts.numel() * kk) * 8 \
-        + g_counts.numel() * 4
+    # the binning's kernel set on the frame's depth-ordered rows, against
+    # its plain version on the same rows
+    cols, spec = cap_g.args[0], cap_g.args[1:]
+    t_all, kk = spec[1] * spec[2], spec[3]
+    for a, b in zip(tiles._bin_kernels(cols, *spec),
+                    tiles._bin_dense(cols, *spec)):
+        check(torch.equal(a, b), "binning kernels on frame inputs exact")
+    ms_b = graph_ms(lambda: tiles._bin_kernels(cols, *spec), 20)
+    plain_b = cuda_ms(lambda: tiles._bin_dense(cols, *spec), 2)
+    b_bytes = (cols.numel() * 4 + t_all * kk * 8) / PEAK_BYTES_PER_S * 1e3
+    bound_c = max(b_bytes_c, b_ops)
     print(f"  composite {ms_c:.4f} ms ({host_c:.4f} ms launched from the "
           f"host through autograd; plain {plain_c:.3f} ms), bound "
-          f"{max(b_bytes, b_ops):.4f} ms ({b_ops:.4f} by operations, "
-          f"{b_bytes:.4f} by bytes), {ms_c / max(b_bytes, b_ops):.2f}x its "
-          f"bound; {needed_slots(counts, runs, k, k_chunk)} of {t * k} slots "
-          "needed")
-    print(f"  slab_gather on the device: gather mode {ms_g:.4f} ms (plain "
-          f"{plain_g:.4f}, index_select {lib_g:.4f} ms), rank mode "
-          f"{ms_r:.4f} ms (plain {plain_r:.4f}, index_select and the mask "
-          f"{lib_r:.4f} ms)")
-    print("  slab_gather issued by the host, launch cost included: "
-          + ", ".join(f"{name} {v:.4f}" for name, v in host.items()))
-    del padded, windows, minus
-
+          f"{bound_c:.4f} ms ({b_ops:.4f} by operations, {b_bytes_c:.4f} by "
+          f"bytes), {ms_c / bound_c:.2f}x its bound; "
+          f"{needed_slots(counts, runs, k, k_chunk)} of {t * k} slots needed")
+    print(f"  binning kernels {ms_b:.4f} ms (plain {plain_b:.3f} ms), bound "
+          f"{b_bytes:.4f} ms (bytes of the rows and the [T, K] ranks), "
+          f"{ms_b / b_bytes:.2f}x")
     entries = [
         entry("composite", label_k, launches["composite"], err_abs, ms_c,
-              plain_c, None, b_bytes, b_ops),
-        # one kernel, two modes: the row is the rank mode, which is every
-        # launch of the main path (checked above); the gather mode, launched
-        # here only to be held and timed, goes beside it
-        entry("slab_gather", label_k + ", rank mode", launches["slab_gather"],
-              0.0, ms_r, plain_r, lib_r, r_bytes / PEAK_BYTES_PER_S * 1e3,
-              0.0),
+              plain_c, None, b_bytes_c, b_ops),
+        entry("binning", label_k, launches["binning"], 0.0, ms_b, plain_b,
+              None, b_bytes, 0.0),
     ]
     # ms is the kernel alone (graph replays); launched from the host through
     # its differentiable entry point, as earlier runs timed it:
     entries[0]["ms_launched_from_host"] = host_c
-    entries[-1]["gather_mode"] = {
-        "launches": launches["slab_gather"] - ranked, "max_abs_err": 0.0,
-        "ms": ms_g, "plain_ms": plain_g, "library_ms": lib_g,
-        "bound_ms": g_bytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
     return entries
 
 
@@ -1128,19 +1177,18 @@ def phase_scene(label, n_alive, capacity, k_cap, n_cams, reps, seed,
     cams = cameras(n_cams)
 
     # --- the main path: counts from 0, every camera once
-    rp.COMPOSITE.reset()
-    tiles.SLAB_GATHER.reset()
+    for kern in (rp.COMPOSITE, *tiles.BIN_KERNELS):
+        kern.reset()
     outs = [render(params, c2w, K, W, H, cfg, step=30_000) for c2w, K in cams]
     torch.cuda.synchronize()
     launches = {"composite": rp.COMPOSITE.launches,
-                "slab_gather": tiles.SLAB_GATHER.launches}
+                "binning": tiles.BIN_EMIT.launches}
     chunked = rp.COMPOSITE.variant_launches.get("chunked", 0)
-    ranked = tiles.SLAB_GATHER.variant_launches.get("ranks", 0)
-    print(f"  launches {launches}, chunked composite launches {chunked}, "
-          f"rank-mode slab_gather launches {ranked}")
+    print(f"  launches {launches}, chunked composite launches {chunked}")
     check(all(v >= n_cams for v in launches.values()),
           "every kernel launched on the main path")
-    check(ranked >= n_cams, "the binning took the gather's fused rank mode")
+    check(all(k.launches == launches["binning"] for k in tiles.BIN_KERNELS),
+          "one launch of each binning kernel a frame")
     if k_cap > rp.K_CHUNK:
         check(chunked >= n_cams, "the compositor's chunked path ran")
     for o in outs:
@@ -1182,8 +1230,7 @@ def phase_scene(label, n_alive, capacity, k_cap, n_cams, reps, seed,
           f"frames (min {min(fr):.3f}, max {max(fr):.3f})")
 
     entries = frame_kernel_entries(params, c2w, K, W, H, cfg, 30_000,
-                                   f"scene {label}, K={k_cap}", launches,
-                                   ranked)
+                                   f"scene {label}, K={k_cap}", launches)
 
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile
@@ -1511,7 +1558,7 @@ def phase_train(label, n_alive, capacity, k_cap, n_warm, n_timed, seed,
     print(f"  scene and state init {time.perf_counter() - t0:.2f} s")
 
     # --- the main path: counts from 0, every step through make_train_step
-    for kern in (rp.COMPOSITE, rp.COMPOSITE_BWD, tiles.SLAB_GATHER):
+    for kern in (rp.COMPOSITE, rp.COMPOSITE_BWD, *tiles.BIN_KERNELS):
         kern.reset()
     times, losses, nonfinite = [], [], []
     for i in range(n_steps):
@@ -1525,16 +1572,15 @@ def phase_train(label, n_alive, capacity, k_cap, n_warm, n_timed, seed,
         nonfinite.append(float(metrics["nonfinite_grads"]))
     launches = {"composite": rp.COMPOSITE.launches,
                 "composite_bwd": rp.COMPOSITE_BWD.launches,
-                "slab_gather": tiles.SLAB_GATHER.launches}
+                "binning": tiles.BIN_EMIT.launches}
     chunked_bwd = rp.COMPOSITE_BWD.variant_launches.get("chunked", 0)
-    ranked = tiles.SLAB_GATHER.variant_launches.get("ranks", 0)
     print(f"  launches {launches}, chunked composite_bwd launches "
-          f"{chunked_bwd}, rank-mode slab_gather launches {ranked}")
+          f"{chunked_bwd}")
     check(all(v >= n_steps for v in launches.values()),
           f"every kernel launched at least once per step ({n_steps} steps)")
     check(launches["composite_bwd"] == n_steps
-          and launches["slab_gather"] == n_steps == ranked,
-          "one composite_bwd and one rank-mode slab_gather per step")
+          and all(k.launches == n_steps for k in tiles.BIN_KERNELS),
+          "one composite_bwd and one binning kernel set per step")
     if k_cap > rp.K_CHUNK:
         check(chunked_bwd >= n_steps, "the chunked backward ran")
     print(f"  loss per step: {', '.join(f'{x:.5f}' for x in losses)}")
@@ -1660,7 +1706,7 @@ def phase_train_mixed(label, n_alive, capacity, k_cap, n_steps, seed):
     kernels = {"composite": rp.COMPOSITE, "composite_bwd": rp.COMPOSITE_BWD,
                "composite_mixed": rp.COMPOSITE_MIXED,
                "composite_bwd_mixed": rp.COMPOSITE_BWD_MIXED,
-               "slab_gather": tiles.SLAB_GATHER}
+               "binning": tiles.BIN_EMIT}
     for kern in kernels.values():
         kern.reset()
     times, losses = [], []
@@ -1679,8 +1725,8 @@ def phase_train_mixed(label, n_alive, capacity, k_cap, n_steps, seed):
           f"{statistics.median(times):.3f} ms")
     check(launches["composite_mixed"] == n_steps
           and launches["composite_bwd_mixed"] == n_steps
-          and launches["slab_gather"] == n_steps,
-          "one mixed composite, one mixed composite_bwd and one slab_gather "
+          and launches["binning"] == n_steps,
+          "one mixed composite, one mixed composite_bwd and one binning "
           "per step")
     check(launches["composite"] == 0 and launches["composite_bwd"] == 0,
           "the mixed step launched no float32 compositing kernel")
@@ -2077,7 +2123,7 @@ def phase_trainer(seed, profile_dir, root, t_data, out_dir):
         timed_steps(trainer, record)
 
         # --- the main path: counts from 0, the trainer's loop
-        kernels = (rp.COMPOSITE, rp.COMPOSITE_BWD, tiles.SLAB_GATHER)
+        kernels = (rp.COMPOSITE, rp.COMPOSITE_BWD, tiles.BIN_EMIT)
         for kern in kernels:
             kern.reset()
         t0 = time.perf_counter()
@@ -2088,12 +2134,10 @@ def phase_trainer(seed, profile_dir, root, t_data, out_dir):
         t_train = time.perf_counter() - t0
         launches = {"composite": rp.COMPOSITE.launches,
                     "composite_bwd": rp.COMPOSITE_BWD.launches,
-                    "slab_gather": tiles.SLAB_GATHER.launches}
+                    "binning": tiles.BIN_EMIT.launches}
         variants = {"composite chunked": rp.COMPOSITE.variant_launches.get(
             "chunked", 0), "composite_bwd chunked":
-            rp.COMPOSITE_BWD.variant_launches.get("chunked", 0),
-            "slab_gather ranks": tiles.SLAB_GATHER.variant_launches.get(
-                "ranks", 0)}
+            rp.COMPOSITE_BWD.variant_launches.get("chunked", 0)}
         print(f"  {TRAINER_STEPS} steps in {t_train:.2f} s with their "
               f"refines, evals and checkpoints (card after: {card_state()}); "
               f"launches {launches}, "
@@ -2314,7 +2358,8 @@ DEVICE_FNS = {"qed_composite_tiles": "composite_kernel<",
               "qed_composite_tiles_bwd": "composite_bwd_kernel<",
               "qed_composite_tiles_mixed": "composite_mixed_kernel<",
               "qed_composite_tiles_bwd_mixed": "composite_bwd_mixed_kernel<",
-              "qed_slab_gather": "slab_gather_kernel<"}
+              "qed_slab_gather": "slab_gather_kernel<",
+              "qed_bin_emit": "bin_emit_kernel"}
 
 
 def kernel_events(prof, kernels):
@@ -2394,7 +2439,7 @@ def dispatch_case(label, n_alive, capacity, k_cap, n, mixed, seed):
                                         perm, bgs)
     e2, losses2, _ = eager_chunk(runner, copy_state(state0, "cuda"), perm,
                                  bgs)
-    kernels = [rp.COMPOSITE, rp.COMPOSITE_BWD, tiles.SLAB_GATHER,
+    kernels = [rp.COMPOSITE, rp.COMPOSITE_BWD, tiles.BIN_EMIT,
                rp.COMPOSITE_MIXED, rp.COMPOSITE_BWD_MIXED]
     for kern in kernels:
         kern.reset()
@@ -2418,7 +2463,7 @@ def dispatch_case(label, n_alive, capacity, k_cap, n, mixed, seed):
     check(all(np.isfinite(rows["loss"])), f"case {label}: finite losses")
     # the path's kernels, every one launched inside the replays
     want = ([rp.COMPOSITE_MIXED, rp.COMPOSITE_BWD_MIXED] if mixed
-            else [rp.COMPOSITE, rp.COMPOSITE_BWD]) + [tiles.SLAB_GATHER]
+            else [rp.COMPOSITE, rp.COMPOSITE_BWD]) + [tiles.BIN_EMIT]
     check(runner.replays - replays0 == n
           and all(k.launches == n for k in want),
           f"case {label}: every kernel counted once per replayed step")
@@ -2562,7 +2607,7 @@ def phase_dispatch(seed, profile_dir, root, per_step):
             return TimedRunner(runner, record, ds.width), ds
         trainer._get_scan_fn = get
         first = trainer.eval_all(0)
-        kernels = (rp.COMPOSITE, rp.COMPOSITE_BWD, tiles.SLAB_GATHER)
+        kernels = (rp.COMPOSITE, rp.COMPOSITE_BWD, tiles.BIN_EMIT)
         for kern in kernels:
             kern.reset()
         t0 = time.perf_counter()
@@ -3037,7 +3082,7 @@ def phase_pipeline(seed, root, run_dir, work):
              "eval": ["--mode", "eval", "--data", root],
              "path": ["--mode", "path", "--camera-path", path_json]}
     rp.COMPOSITE.reset()
-    tiles.SLAB_GATHER.reset()
+    tiles.BIN_EMIT.reset()
     t0 = time.perf_counter()
     got = printed_values(run_cli(["eval", "--data", root, "--load-dir", ck,
                                   "--output-dir", work / "eval"]))
@@ -3050,10 +3095,9 @@ def phase_pipeline(seed, root, run_dir, work):
         wall[mode] = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = {"composite": rp.COMPOSITE.launches,
-                "slab_gather": tiles.SLAB_GATHER.launches}
-    ranked = tiles.SLAB_GATHER.variant_launches.get("ranks", 0)
-    print(f"  launches of eval and the three renders: {launches}, rank mode "
-          f"{ranked}, chunked composite "
+                "binning": tiles.BIN_EMIT.launches}
+    print(f"  launches of eval and the three renders: {launches}, chunked "
+          f"composite "
           f"{rp.COMPOSITE.variant_launches.get('chunked', 0)}")
 
     for k in ("rgb_psnr", "rgb_ssim", "depth_abs_rel"):
@@ -3132,16 +3176,15 @@ def phase_pipeline(seed, root, run_dir, work):
                       "render_readback_ms": statistics.median(fr_ms),
                       "png_encode_ms": enc_ms, "within_1_level": close}
     check(launches["composite"] >= sum(r["frames"] for r in rows.values())
-          and ranked >= sum(r["frames"] for r in rows.values()),
+          and launches["binning"] >= sum(r["frames"] for r in rows.values()),
           "every CLI frame launched the compositing forward and the "
-          "window gather's rank mode")
+          "binning kernels")
     out["render"] = rows
     c2w, K, w, h = cli.render_cameras(cli.render_parser().parse_args(
         ["--load-dir", str(ck), *map(str, modes["orbit"])]), state.params)[0]
     entries = frame_kernel_entries(
         state.params, c2w, K, w, h, cfg, state.step,
-        f"eval and render CLI, trained room, K={cfg.max_per_tile}", launches,
-        ranked)
+        f"eval and render CLI, trained room, K={cfg.max_per_tile}", launches)
 
     # --- 5. export in its four forms
     alive = state.params.alive
@@ -3368,10 +3411,10 @@ def phase_forest(seed, work):
                                                 "variants": {}})
     bwd = launches.get("qed_composite_tiles_bwd", {"launches": 0,
                                                    "variants": {}})
-    gat = launches.get("qed_slab_gather", {"launches": 0, "variants": {}})
+    gat = launches.get("qed_bin_emit", {"launches": 0, "variants": {}})
     check(comp["launches"] > 0 and bwd["launches"] > 0
           and gat["launches"] > 0, "the run launched composite, "
-          "composite_bwd and slab_gather")
+          "composite_bwd and the binning kernels")
     chunked = (comp["variants"].get("chunked", 0),
                bwd["variants"].get("chunked", 0))
     tr = Trainer(dataclasses.replace(cfg, load_dir=str(run / "ckpts"),
@@ -3383,8 +3426,7 @@ def phase_forest(seed, work):
     entries = frame_kernel_entries(
         tr.state.params, cam.c2w, cam.intrinsics_matrix(), cam.width,
         cam.height, eval_cfg, tr.state.step, f"forest eval frame, K={k_eval}",
-        {"composite": comp["launches"], "slab_gather": gat["launches"]},
-        gat["variants"].get("ranks", 0))
+        {"composite": comp["launches"], "binning": gat["launches"]})
     d = d_last
     k_train = tr._k_for(d)
     item = tr.dm.get_item(int(tr.dm.train_indices[0]))
@@ -3533,7 +3575,7 @@ def phase_bilateral(seed, root, work):
             r, ds = _orig(*a, **kw)
             return TimedRunner(r, _rec, ds.width), ds
         tt._get_scan_fn = get
-        kernels = (rp.COMPOSITE, rp.COMPOSITE_BWD, tiles.SLAB_GATHER)
+        kernels = (rp.COMPOSITE, rp.COMPOSITE_BWD, tiles.BIN_EMIT)
         for kern in kernels:
             kern.reset()
         tt.train(finalize=False)
@@ -3741,7 +3783,7 @@ def phase_viewer(seed, root, work):
     del e1, e2, g, state0
 
     # the launches of one render, the trainer idle
-    kernels = (rp.COMPOSITE, tiles.SLAB_GATHER)
+    kernels = (rp.COMPOSITE, tiles.BIN_EMIT)
     for kern in kernels:
         kern.reset()
     for _ in range(3):
@@ -3749,7 +3791,7 @@ def phase_viewer(seed, root, work):
     per_render = {k.symbol: k.launches / 3 for k in kernels}
     print(f"  launches per /render {per_render}")
     check(all(v >= 1 for v in per_render.values()), "each render launched "
-          "composite and slab_gather")
+          "composite and the binning kernels")
     t.viewer.stop()
 
     # cli view on the run's checkpoint
@@ -3889,7 +3931,7 @@ def sharded_counters():
     return {"composite": rp.COMPOSITE, "composite_bwd": rp.COMPOSITE_BWD,
             "composite_mixed": rp.COMPOSITE_MIXED,
             "composite_bwd_mixed": rp.COMPOSITE_BWD_MIXED,
-            "slab_gather": tiles.SLAB_GATHER}
+            "binning": tiles.BIN_EMIT}
 
 
 def sharded_run(mesh, inp, steps, extra, capture=False):
@@ -3936,8 +3978,6 @@ def sharded_run(mesh, inp, steps, extra, capture=False):
     launches = {k: kern.launches for k, kern in counters.items()}
     launches["composite_bwd_chunked"] = counters[
         "composite_bwd"].variant_launches.get("chunked", 0)
-    launches["slab_gather_ranks"] = counters[
-        "slab_gather"].variant_launches.get("ranks", 0)
     return dict(losses=losses, ms=ms, launches=launches, caps=caps,
                 metrics={k: float(v) for k, v in metrics.items()},
                 full=gather_state(state, mesh), cfg=cfg, b_local=b_local)
@@ -4002,7 +4042,7 @@ def sharded_rank(work, num_data, num_model):
 def sharded_kernel_rows(name, run, inp):
     """The ``kernels`` rows of a sharded step's kernels on its own inputs
     (this rank's last step): the backward on its captured arguments, and the
-    forward and the rank-mode gather on a frame of the gathered state from
+    forward and the binning kernels on a frame of the gathered state from
     the step's first camera; ``launches`` are this rank's (the parent puts
     the sum over the ranks in their place)."""
     label = f"sharded {name}, K={run['cfg'].max_per_tile}"
@@ -4012,7 +4052,7 @@ def sharded_kernel_rows(name, run, inp):
     batch = inp[1]
     rows += frame_kernel_entries(
         run["full"].params, batch["c2w"][0], batch["K"][0], inp[4], inp[5],
-        run["cfg"], run["full"].step, label, n, n["slab_gather_ranks"])
+        run["cfg"], run["full"].step, label, n)
     return rows
 
 
@@ -4158,8 +4198,8 @@ def phase_sharded(seed, root, work):
         bwd = "composite_bwd_mixed" if mixed else "composite_bwd"
         print(f"  {name}: launches {n}")
         check(n[fwd] >= want and n[bwd] == want
-              and n["slab_gather_ranks"] == want,
-              f"{name}: one {fwd}, {bwd} and rank-mode gather per camera "
+              and n["binning"] == want,
+              f"{name}: one {fwd}, {bwd} and binning per camera "
               f"per rank ({want})")
         if scene == "B":
             check(n["composite_bwd_chunked"] == want,
@@ -4304,7 +4344,7 @@ def sharded_cli(seed, root, work, cli):
     print(f"  1x2 rank 0's launches: {launched}")
     check(all(launched.get(sym, {}).get("launches", 0) >= SHARDED_STEPS
               for sym in ("qed_composite_tiles", "qed_composite_tiles_bwd",
-                          "qed_slab_gather")),
+                          "qed_bin_emit")),
           "rank 0 of the 1x2 run launched each kernel of the step at least "
           "once a step")
     for name in secs:
@@ -4359,7 +4399,8 @@ def main() -> int:
     phase_kernel_parity(gen)
     phase_bwd_parity(gen)
     phase_mixed_parity(gen)
-    kernels, frames, steps = [], {}, {}
+    kernels, binning = phase_binning(args.seed)
+    frames, steps = {}, {}
     for label, n_alive, cap, k_cap, n_cams, reps in (
         ("A", 80_000, 131_072, 256, 4, 2),
         ("B", 288_000, 327_680, 2048, 2, 2),
@@ -4412,7 +4453,8 @@ def main() -> int:
                       "trainer": trainer, "dispatch": dispatch,
                       "pipeline": pipeline, "codec": codec,
                       "bilateral": bilateral, "viewer": viewer,
-                      "forest": forest, "sharded": sharded}))
+                      "forest": forest, "sharded": sharded,
+                      "binning": binning}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

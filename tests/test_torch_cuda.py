@@ -177,33 +177,128 @@ def test_slab_gather_kernel_exact(gen):
                        tiles.slab_gather_ref(keys[1:], starts, 256, 7))
 
 
-@pytest.mark.parametrize("k", [1, 256, 333, 1024, 2048])
-def test_slab_gather_rank_mode_exact(gen, k):
-    """The gather fused with the rank mask: odd starts, starts at and past
-    M, counts of 0, K and above K."""
+def _stacked(tiles_counts, seed, ntx=6, nty=4):
+    """Splats of radius 3 at tile centres, ``c`` on each tile ``t`` of
+    ``tiles_counts`` ({t: c}); random depths."""
+    rng = np.random.default_rng(seed)
+    t = np.concatenate([np.full(c, t) for t, c in tiles_counts.items()])
+    t = t[rng.permutation(t.size)]
+    m2d = np.stack([(t % ntx) * 16 + 8.0, (t // ntx) * 16 + 8.0], 1)
+    m2d += rng.uniform(-2, 2, m2d.shape)
+    radii = np.full(t.size, 3, np.int32)
+    return m2d.astype(np.float32), radii, rng.uniform(0.5, 9, t.size)
+
+
+def _scene(n, seed, sr):
+    from qed_splatter_tpu_torch.ops.projection import project_gaussians
+    from qed_splatter_tpu_torch.testing import random_scene, simple_camera
+
+    s = random_scene(n=n, seed=seed, scale_range=sr)
+    vm, K = simple_camera(96, 64, 60.0)
+    p = project_gaussians(*(torch.tensor(s[x]) for x in (
+        "means", "quats", "scales")), torch.tensor(vm), torch.tensor(K),
+        96, 64)
+    return (p.means2d[0].numpy(), p.radii[0].to(torch.int32).numpy(),
+            p.depths[0].numpy())
+
+
+def _culled(inputs):
+    m2d, radii, depths = inputs
+    return m2d, np.zeros_like(radii), depths
+
+
+# name: (inputs, bin_gaussians keywords); 96x64 (6x4 tiles); the kernels'
+# row block is 1024 depth ranks
+BINNING_CASES = {
+    # tests/test_torch_tiles.py's cases: small splats, big ones over the
+    # pair budget with an auto-sized and a 16-row overflow table, a K cap
+    "small": (lambda: _scene(2048, 0, (0.02, 0.12)), dict(max_per_tile=128)),
+    "big": (lambda: _scene(1500, 1, (0.1, 0.6)), dict(max_per_tile=128)),
+    "overflow_short": (lambda: _scene(1500, 1, (0.1, 0.6)), dict(
+        max_per_tile=256, small_tiles_per_gaussian=2, overflow_slots=16)),
+    "few": (lambda: _scene(300, 2, (0.02, 0.3)), dict(
+        max_per_tile=64, small_tiles_per_gaussian=4)),
+    # tile 3 reaches K = 2048 exactly; tile 9 crosses it inside a row block
+    "reach_k": (lambda: _stacked({3: 2048, 9: 3000, 15: 100}, 4),
+                dict(max_per_tile=2048, small_tiles_per_gaussian=64)),
+    # counts far above K + 1023
+    "far_above": (lambda: _stacked({0: 20_000, 23: 64}, 5),
+                  dict(max_per_tile=64, small_tiles_per_gaussian=64)),
+    "culled": (lambda: _culled(_scene(256, 3, (0.02, 0.12))),
+               dict(max_per_tile=128)),
+    # bboxes over the whole budget of 16 cells, overflow rows for all
+    "over_budget": (lambda: _scene(1500, 1, (0.1, 0.6)), dict(
+        max_per_tile=128, max_tiles_per_gaussian=16,
+        small_tiles_per_gaussian=4)),
+    # the pair budget is the whole budget: no overflow table
+    "budget_64": (lambda: _scene(1500, 1, (0.1, 0.6)), dict(
+        max_per_tile=256, small_tiles_per_gaussian=64)),
+}
+
+
+@pytest.mark.parametrize("case", [*BINNING_CASES, "graph_replay"])
+def test_binning_kernels_match_plain_path(gen, case):
+    """``csrc/binning.cu`` against the plain version, integer for integer:
+    the whole binning against ``use_pallas=False`` on the card, and the
+    kernel set against the plain version on CPU tensors from the same
+    depth-ordered rows; one launch of each kernel a binning. The graph case
+    captures a binning and replays it on other inputs of the same shape."""
     from qed_splatter_tpu_torch.ops import tiles
 
-    m, t = 100_000, 500
-    keys = torch.sort(torch.randint(0, 1 << 40, (m,), generator=gen,
-                                    device="cuda")).values
-    starts = torch.sort(torch.randint(0, m, (t,), generator=gen,
-                                      device="cuda")).values
-    starts[:5] = torch.tensor([-7, m, m + 9, m - 3, 1], device="cuda")
-    counts = torch.randint(0, 2 * k + 2, (t,), generator=gen, device="cuda",
-                           dtype=torch.int32)
-    counts[5:9] = torch.tensor([0, 1, k, k + 1], device="cuda",
-                               dtype=torch.int32)
-    before = tiles.SLAB_GATHER.variant_launches.get("ranks", 0)
-    got = tiles.slab_ranks(keys, starts, counts, k, 17)
-    torch.cuda.synchronize()
-    assert tiles.SLAB_GATHER.variant_launches["ranks"] == before + 1
-    assert torch.equal(got, tiles.slab_ranks_ref(keys, starts, counts, k,
-                                                 17))
-    n = torch.minimum(counts.clamp(max=k).long(),
-                      (m - starts.clamp(0, m)))
-    slot = torch.arange(k, device="cuda")[None, :]
-    assert bool((got[slot >= n[:, None]] == -1).all())
-    assert bool((got[slot < n[:, None]] >= 0).all())
+    fields = ("order", "tile_counts", "num_truncated", "tile_ranks",
+              "tile_lists")
+    name = "small" if case == "graph_replay" else case
+    make, kw = BINNING_CASES[name]
+    args = [torch.as_tensor(x, device="cuda") for x in make()]
+    args[2] = args[2].float()
+    if case == "graph_replay":
+        static = [a.clone() for a in args]
+        tiles.bin_gaussians(*static, 96, 64, **kw)       # builds and loads
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = tiles.bin_gaussians(*static, 96, 64, **kw)
+        other = [torch.as_tensor(x, device="cuda")
+                 for x in _scene(2048, 7, (0.05, 0.3))]
+        for s, a in zip(static, other):
+            s.copy_(a.to(s.dtype))
+        graph.replay()
+        torch.cuda.synchronize()
+        args = static
+    else:
+        before = [(k.launches, k.variant_launches.get("overflow", 0))
+                  for k in tiles.BIN_KERNELS]
+        got = tiles.bin_gaussians(*args, 96, 64, **kw)
+        torch.cuda.synchronize()
+        overflow = kw.get("small_tiles_per_gaussian", 8) < kw.get(
+            "max_tiles_per_gaussian", 64)
+        for k, (n, v) in zip(tiles.BIN_KERNELS, before):
+            assert k.launches == n + 1, k.symbol
+            assert k.variant_launches.get("overflow", 0) == v + (
+                overflow and k in (tiles.BIN_COUNT, tiles.BIN_PLACE))
+    want = tiles.bin_gaussians(*args, 96, 64, use_pallas=False, **kw)
+    for f in fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    # the kernel set against the plain version on the CPU, same rows
+    n = args[0].shape[0]
+    tpg = kw.get("max_tiles_per_gaussian", 64)
+    small = min(kw.get("small_tiles_per_gaussian", 8), tpg)
+    slots = kw.get("overflow_slots", 0) or max(1024, n // 16)
+    n_big = min(slots, n) if tpg > small else 0
+    cols = torch.cat([args[0], args[1][:, None].float()], -1)[got.order]
+    spec = (16, 6, 4, kw["max_per_tile"], tpg, small, n_big)
+    for a, b in zip(tiles._bin_kernels(cols, *spec),
+                    tiles._bin_dense(cols.cpu(), *spec)):
+        assert torch.equal(a.cpu(), b)
+    counts, k = got.tile_counts, kw["max_per_tile"]
+    if name == "reach_k":
+        assert counts[3] == k and counts[9] > k
+    if name == "far_above":
+        assert counts[0] > k + tiles.ROW_BLOCK
+    if name in ("overflow_short", "over_budget"):
+        assert int(got.num_truncated) > 0
+    if name == "culled":
+        assert int(counts.sum()) == 0 and bool((got.tile_ranks == -1).all())
 
 
 def test_render_kernels_match_plain_path(gen):
@@ -407,11 +502,12 @@ def test_trainer_on_the_card_grows_and_launches_every_kernel(gen, tmp_path):
                         model=model, steps_per_dispatch=1)
     trainer = Trainer(cfg)
     cap = trainer.state.params.capacity
-    for kern in (rp.COMPOSITE, rp.COMPOSITE_BWD, tiles.SLAB_GATHER):
+    for kern in (rp.COMPOSITE, rp.COMPOSITE_BWD, *tiles.BIN_KERNELS):
         kern.reset()
     trainer.train()
     assert rp.COMPOSITE_BWD.launches == 30
-    assert rp.COMPOSITE.launches >= 30 and tiles.SLAB_GATHER.launches >= 30
+    assert rp.COMPOSITE.launches >= 30
+    assert all(k.launches == rp.COMPOSITE.launches for k in tiles.BIN_KERNELS)
     assert trainer.state.params.capacity >= 2 * cap
     rows = [json.loads(x) for x in open(trainer.run_dir / "metrics.jsonl")]
     assert all(np.isfinite(r["loss"]) for r in rows if r["split"] == "train")
@@ -684,13 +780,14 @@ def test_graph_chunk_matches_eager_chunk(gen, tmp_path):
     runner, ds = t._get_scan_fn(1, 5, True, t.state.params.capacity)
     perm = t._next_perm(5)
     bgs = t._backgrounds(0, 5)
-    for kern in (rp.COMPOSITE, rp.COMPOSITE_BWD, tiles.SLAB_GATHER):
+    for kern in (rp.COMPOSITE, rp.COMPOSITE_BWD, *tiles.BIN_KERNELS):
         kern.reset()
     a, metrics = runner(copy_state(t.state, "cuda"), perm, bgs)
     torch.cuda.synchronize()
     assert (runner.captures, runner.replays) == (1, 4)
     assert rp.COMPOSITE_BWD.launches == 5
-    assert rp.COMPOSITE.launches == tiles.SLAB_GATHER.launches == 5
+    assert rp.COMPOSITE.launches == 5
+    assert all(k.launches == 5 for k in tiles.BIN_KERNELS)
     rows = dict(zip(runner.names, metrics.cpu().numpy().T))
     np.testing.assert_array_equal(rows["cam_idx"],
                                   ds.data["cam_idx"].cpu().numpy()[perm])
@@ -868,13 +965,13 @@ def test_init_pc_and_render_on_the_card(gen, tmp_path):
         out = tmp_path / f"render_{name}"
         argv = ["--load-dir", str(ck), "--output-dir", str(out), *extra]
         rp.COMPOSITE.reset()
-        tiles.SLAB_GATHER.reset()
+        tiles.BIN_EMIT.reset()
         assert cli.main(["render", *argv]) == 0
         ns = cli.render_parser().parse_args(argv)
         ns.mode = ns.mode or "path"
         cams = cli.render_cameras(ns, state.params)
         assert rp.COMPOSITE.launches >= len(cams)
-        assert tiles.SLAB_GATHER.launches >= len(cams)
+        assert tiles.BIN_EMIT.launches >= len(cams)
         for i, (c2w, K, w, h) in enumerate(cams):
             want = cli.to_uint8(render(state.params, c2w, K, w, h, cfg,
                                        step=state.step, train=False).rgb)

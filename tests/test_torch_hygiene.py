@@ -101,8 +101,8 @@ def test_native_build_failure_names_the_command(monkeypatch, tmp_path):
 def test_port_has_its_kernel_sources():
     srcs = sorted(p.name for p in (ROOT / "qed_splatter_tpu_torch" / "csrc")
                   .glob("*.cu"))
-    assert srcs == ["composite.cu", "composite_bwd.cu", "copy_rows.cu",
-                    "slab_gather.cu", "stage_mark.cu"]
+    assert srcs == ["binning.cu", "composite.cu", "composite_bwd.cu",
+                    "copy_rows.cu", "slab_gather.cu", "stage_mark.cu"]
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

@@ -62,13 +62,6 @@ def test_slab_gather_4_byte_plain_matches_lax_gather(k):
     assert tiles.SLAB_GATHER32.launches == before   # the CPU launches none
 
 
-def test_slab_gather_4_byte_refuses_rank_mode():
-    keys = torch.arange(10, dtype=torch.int32)
-    with pytest.raises(TypeError, match="int32 keys in its gather mode"):
-        tiles.slab_ranks(keys, torch.zeros(2, dtype=torch.int64),
-                         torch.ones(2, dtype=torch.int32), 4, 3)
-
-
 @pytest.mark.parametrize("shape", [(327, 10), (4096, 10), (13,)])
 def test_copy_rows_is_the_identity(shape):
     """#7's plain version against the JAX tool's Pallas copy: the identity

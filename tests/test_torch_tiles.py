@@ -1,6 +1,6 @@
 """PyTorch port vs the JAX package: tile binning (exact integer equality),
 the window gather against the Pallas slab kernel in interpret mode, and the
-gather fused with the rank mask against the JAX binning's own ranks."""
+plain binning's rank gather against the JAX binning's own ranks."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,8 +12,9 @@ from qed_splatter_tpu.ops.tiles import bin_gaussians as jbin
 from qed_splatter_tpu.ops.tiles import slab_gather_unaligned
 from qed_splatter_tpu.testing import random_scene, simple_camera
 from qed_splatter_tpu_torch.ops.tiles import bin_gaussians as tbin
+from qed_splatter_tpu_torch.ops import tiles
 from qed_splatter_tpu_torch.ops.tiles import (slab_gather, slab_gather_ref,
-                                              slab_ranks, slab_ranks_ref)
+                                              slab_ranks_ref)
 
 W, H = 96, 64
 
@@ -106,9 +107,9 @@ def test_window_gather_clamps_and_checks():
 
 @pytest.mark.parametrize("n,seed,sr,k,small,ovf", CASES)
 def test_fused_rank_gather_matches_binning(n, seed, sr, k, small, ovf):
-    """``slab_ranks`` on keys packed from JAX's own per-tile ranks gives
+    """``slab_ranks_ref`` on keys packed from JAX's own per-tile ranks gives
     JAX's ``tile_ranks`` back exactly, front-most-K cap included, and
-    ``bin_gaussians`` takes it on both of its gather settings."""
+    ``bin_gaussians`` gives them on both of its settings."""
     m2d, radii, depths = _projected(n, seed, sr)
     j = jbin(m2d, radii, depths, W, H, max_per_tile=4096,
              small_tiles_per_gaussian=small, overflow_slots=ovf,
@@ -123,7 +124,7 @@ def test_fused_rank_gather_matches_binning(n, seed, sr, k, small, ovf):
         [len(counts) << rank_bits] * 3, np.int64)]))   # sentinel tile keys
     starts = torch.tensor(np.concatenate([[0], np.cumsum(counts)[:-1]])
                           .astype(np.int64))
-    got = slab_ranks(keys, starts, torch.tensor(counts), k, rank_bits)
+    got = slab_ranks_ref(keys, starts, torch.tensor(counts), k, rank_bits)
     want = jbin(m2d, radii, depths, W, H, max_per_tile=k,
                 small_tiles_per_gaussian=small, overflow_slots=ovf,
                 with_slab_plan=False).tile_ranks
@@ -144,17 +145,30 @@ def test_fused_rank_gather_edges(k):
         torch.arange(m, dtype=torch.int64) % 200)
     starts = torch.tensor([0, m, m + 20, -4, 10, m - 2, 30], dtype=torch.int64)
     counts = torch.tensor([3, 5, 1, 2, 0, 9, 100], dtype=torch.int32)
-    got = slab_ranks(keys, starts, counts, k, 8)
-    assert torch.equal(got, slab_ranks_ref(keys, starts, counts, k, 8))
+    got = slab_ranks_ref(keys, starts, counts, k, 8)
     s0 = starts.clamp(0, m)
     for t in range(len(starts)):
         n = min(int(counts[t]), k, m - int(s0[t]))
         assert got[t, :n].tolist() == [(int(s0[t]) + i) % 200
                                        for i in range(n)]
         assert (got[t, n:] == -1).all()
-    with pytest.raises(ValueError):
-        slab_ranks(keys, starts, counts.long(), k, 8)
-    with pytest.raises(ValueError):
-        slab_ranks(keys, starts, counts[:3], k, 8)
-    with pytest.raises(ValueError):
-        slab_ranks(keys, starts, counts, k, 0)
+
+
+@pytest.mark.parametrize("what", ["float64", "strided", "tiles", "k"])
+def test_binning_kernels_refuse_what_they_cannot_take(what):
+    """The kernel set's wrapper refuses, before any launch, rows that are
+    not contiguous float32 and shapes past its shared memory (at most
+    58,112 tiles, and K + 1023 candidate slots)."""
+    cols = torch.zeros((8, 3), dtype=torch.float32)
+    spec = [16, 4, 4, 64, 64, 64, 0]
+    if what == "float64":
+        cols = cols.double()
+    elif what == "strided":
+        cols = torch.zeros((3, 8)).t()
+    elif what == "tiles":
+        spec[1:3] = [300, 200]
+    else:
+        spec[3] = 58_112
+    with pytest.raises(TypeError if what in ("float64", "strided")
+                       else ValueError):
+        tiles._bin_kernels(cols, *spec)

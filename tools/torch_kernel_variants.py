@@ -38,7 +38,9 @@ measured only: its line counts the pixels that an alpha mask which flips
 against ``expf`` moves by more than rounding (1e-4) on the step's slabs. The
 identity copy (#7) is timed by CUDA-graph replays at the copy tool's two
 shapes ([327,680, 10] and [4,396,032, 10] float32), into a new tensor and
-into a preallocated one, beside ``Tensor.copy_`` and ``clone``.
+into a preallocated one, beside ``Tensor.copy_`` and ``clone``. The window
+gather runs on sorted random keys at each scene's tiles and K: the step
+itself gathers no windows.
 ``--kernels`` (a comma list of composite, composite_bwd, composite_mixed,
 composite_bwd_mixed, slab_gather, copy_rows) times only those.
 
@@ -252,8 +254,8 @@ def patched_source(name, patches, csrc=None):
 
 
 def step_inputs(n_alive, capacity, k_cap, seed, mixed=False):
-    """The arguments one training step gives the forward kernel, the
-    backward kernel and the window gather, captured from the step itself;
+    """The arguments one training step gives the forward kernel and the
+    backward kernel, captured from the step itself;
     ``mixed``: the step of ``mixed_precision`` on the state on which
     ``chip_smoke.py``'s mixed phase holds its kernels, whose backward's
     forward's and backward's arguments (those of
@@ -286,11 +288,10 @@ def step_inputs(n_alive, capacity, k_cap, seed, mixed=False):
         return [[x.detach() if torch.is_tensor(x) else x for x in cap.args]
                 for cap in (cap_f, cap_m)]
     with chip_smoke.Capture(rp, "composite_tiles_bwd") as cap_b, \
-            chip_smoke.Capture(rp, "composite_tiles_fwd") as cap_f, \
-            chip_smoke.Capture(tiles, "slab_ranks") as cap_g:
+            chip_smoke.Capture(rp, "composite_tiles_fwd") as cap_f:
         step.grads(state, batch, gen)
     torch.cuda.synchronize()
-    return cap_f.args, cap_b.args, cap_g.args
+    return cap_f.args, cap_b.args
 
 
 def run_fwd(kernel, args, tail=False):
@@ -639,13 +640,23 @@ def copy_rows_rows():
     return rows
 
 
-def run_slab(kernel, args, ranks):
-    keys, starts, counts, k, rank_bits = args
+def slab_inputs(seed, t, k):
+    """Sorted random int64 keys, T * K of them, and T sorted starts: the
+    gather at a training step's tiles and K."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    m = t * k
+    keys = torch.sort(torch.randint(0, 1 << 40, (m,), generator=gen,
+                                    device="cuda")).values
+    starts = torch.sort(torch.randint(0, m, (t,), generator=gen,
+                                      device="cuda")).values
+    return keys, starts, k
+
+
+def run_slab(kernel, args):
+    keys, starts, k = args
     t = starts.shape[0]
     out = torch.empty((t, k), dtype=torch.int64, device="cuda")
-    kernel(ptr(keys), ptr(starts),
-           ptr(counts) if ranks else ctypes.c_void_p(None), ptr(out),
-           keys.shape[0], t, k, -1, rank_bits if ranks else 0)
+    kernel(ptr(keys), ptr(starts), ptr(out), keys.shape[0], t, k, -1)
     return out
 
 
@@ -771,11 +782,11 @@ def main() -> int:
             torch.cuda.empty_cache()
         if not (f32_k or args.one_sweep):
             continue
-        f_args, b_args, g_args = step_inputs(n_alive, cap, k_cap, args.seed)
+        f_args, b_args = step_inputs(n_alive, cap, k_cap, args.seed)
         if args.one_sweep:
             rows += one_sweep_rows(f"train {label} step's slabs, K={k_cap}",
                                    b_args)
-            del f_args, b_args, g_args
+            del f_args, b_args
             torch.cuda.empty_cache()
             continue
         if "composite" in want_k:
@@ -794,21 +805,21 @@ def main() -> int:
                              "ms": ms, "err_vs_default": err})
                 print(json.dumps(rows[-1]), flush=True)
             del want
-        for ranks in ((True, False) if "slab_gather" in want_k else ()):
-            ref = (tiles.slab_ranks(*g_args) if ranks else
-                   tiles.slab_gather(g_args[0], g_args[1], g_args[3], -1))
+        if "slab_gather" in want_k:
+            g_args = slab_inputs(args.seed, f_args[2].shape[0], k_cap)
+            ref = tiles.slab_gather(*g_args, -1)
             for pairs in SLAB_VARIANTS:
                 kern = CudaKernel("slab_gather", tiles.SLAB_GATHER.symbol,
                                   tiles.SLAB_GATHER.argtypes[:-1],
                                   slab_defines(pairs))
-                exact = torch.equal(run_slab(kern, g_args, ranks), ref)
-                ms = chip_smoke.cuda_ms(
-                    lambda: run_slab(kern, g_args, ranks), 100)
+                exact = torch.equal(run_slab(kern, g_args), ref)
+                ms = chip_smoke.cuda_ms(lambda: run_slab(kern, g_args), 100)
                 rows.append({"kernel": "slab_gather", "scene": label,
-                             "mode": "ranks" if ranks else "gather",
-                             "pairs": pairs, "ms": ms, "exact": exact})
+                             "mode": "gather", "pairs": pairs, "ms": ms,
+                             "exact": exact})
                 print(json.dumps(rows[-1]), flush=True)
-        del f_args, b_args, g_args
+            del g_args
+        del f_args, b_args
         torch.cuda.empty_cache()
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
