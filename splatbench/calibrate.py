@@ -11,7 +11,9 @@ rows of opacity logit, mean log size against the spacing its alive count
 has on the scene's surfaces, and the largest and smallest axis against
 the mean (with the densify statistics in a densifying cell), the SH bands'
 RMS, Adam's second moments, the camera deltas, the K and pair budget the
-trainer holds, and the pairs a step needs per pixel. Then it makes the
+trainer holds, and the pairs a step needs per pixel; with the bilateral
+grid on, the train cameras' colour grids (:func:`grid_statistics`) and
+their Adam second moments. Then it makes the
 cell's state from those rows (:func:`splatbench.scene.synthesize`), lets
 the program's own trainer settle K and the pair budget on it, and reads
 the same numbers there. Each cell's rule is written whole under
@@ -52,6 +54,41 @@ def _rms(nu) -> dict:
     r = r[r > 0].sqrt().log()
     return {"rms": float(r.median().exp()) if r.numel() else 0.0,
             "log_sigma": float(r.std()) if r.numel() > 1 else 0.0}
+
+
+def grid_statistics(grids, train) -> dict:
+    """The rule :func:`splatbench.scene.bilateral_grids` draws from, read
+    from grids ([num_cameras, gh, gw, gd, 12]) at the train cameras
+    ``train``: each coefficient's per-camera mean offset from the identity
+    (the mean and spread over the cameras), the RMS of each coefficient's
+    residual about its camera's mean, the lag-1 correlation of the
+    residual along each grid axis (one minus the mean squared difference
+    of neighbours over twice the mean square: what sets the total
+    variation), and ``tv``, the loss's three terms over every camera."""
+    import torch
+
+    from splatbench import scene
+
+    g = grids.double()
+    ident = torch.tensor(scene.IDENTITY, dtype=g.dtype, device=g.device)
+    dev = g[torch.as_tensor(train, device=g.device)] - ident
+    off = dev.mean((1, 2, 3))
+    res = dev - off[:, None, None, None, :]
+    var = res.pow(2).mean()
+    corr = []
+    for dim in (1, 2, 3):
+        d = torch.diff(res, dim=dim).pow(2).mean()
+        corr.append(float(1.0 - d / (2.0 * var)) if var > 0 else 0.0)
+    return {
+        "offset_mean": [float(v) for v in off.mean(0)],
+        "offset_std": [float(v) for v in (off.std(0) if off.shape[0] > 1
+                                          else torch.zeros_like(off[0]))],
+        "residual_rms": [float(v) for v in res.pow(2).mean((0, 1, 2, 3))
+                         .sqrt()],
+        "residual_corr": corr,
+        "tv": [float(torch.diff(g, dim=dim).pow(2).mean())
+               for dim in (1, 2, 3)],
+    }
 
 
 def _needed(params, scn, model, k, tpg, positions):
@@ -111,6 +148,12 @@ def read_state(trainer, scn, cell, area, gen_seed, steps_since_refine):
         "camera_delta_rms": float(st.camera_opt.double().pow(2).mean()
                                   .sqrt()),
     }
+    if st.bilateral_grids is not None:
+        train = list(scn.train_indices)
+        rule["bilateral_grid"] = dict(
+            grid_statistics(st.bilateral_grids, train),
+            adam=_rms(st.bilateral_grid_state["nu"][
+                torch.as_tensor(train, device=p.means.device)]))
     summary = {
         "step": int(st.step), "alive": n,
         "capacity": int(p.capacity),
@@ -233,7 +276,7 @@ def main(argv=None) -> int:
         with contextlib.redirect_stdout(sys.stderr):
             while (trainer.state.step < stop
                    and time.perf_counter() - t0 < args.budget_s):
-                trainer.train(max_steps=min(stop, trainer.state.step + 500),
+                trainer.train(max_steps=min(stop, trainer.state.step + 100),
                               finalize=False)
         log(f"{cell.name}: step {trainer.state.step} of {stop} after "
             f"{time.perf_counter() - t0:.1f} s, alive "

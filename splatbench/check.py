@@ -20,6 +20,8 @@ plain PyTorch. The numbers compared, each against its limit in
   way, over the rows that the refine keeps on both sides (leaves whose
   reference gradient is under a thousandth of the median leaf's move by
   round-off alone and are left out);
+- with the model's bilateral grid on, the per-camera colour grids are one
+  more leaf of ``grad_gap`` and ``change_gap``;
 - ``refine_mismatch``: the share of rows whose alive flag after the refine
   differs (a cull skipped or at another threshold fails it);
 - with absgrad on (a densifying cell): ``stats_gap``, the worst relative
@@ -80,6 +82,8 @@ def reference_readings(cell, scn: rdata.Scene, seed: int, ks, tpgs,
     S = scene.synthesize(scn, cfg, traffic, cell.state, seed, device)
     p0 = {g: S["params"][g].clone() for g in GROUPS}
     cam0 = S["camera_opt"].clone()
+    grids0 = (S["bilateral_grids"].clone() if "bilateral_grids" in S
+              else None)
     stats0 = {key: v.clone() for key, v in S["stats"].items()}
     resume = S["step"]
     positions = scene.camera_sequence(seed, resume, len(scn.train_indices),
@@ -111,8 +115,8 @@ def reference_readings(cell, scn: rdata.Scene, seed: int, ks, tpgs,
                 traffic["absgrad"], bands)
             out["loss"].append(float(loss))
             if i == 0:
-                out["grad_norm"] = {g: float(grads[g].double().norm())
-                                    for g in LEAVES}
+                out["grad_norm"] = {g: float(x.double().norm())
+                                    for g, x in grads.items()}
             if i == 2 and traffic["absgrad"]:
                 out["stats_grad"] = float(
                     (S["stats"]["grad_norm_sum"].double()
@@ -135,6 +139,9 @@ def reference_readings(cell, scn: rdata.Scene, seed: int, ks, tpgs,
     out["row_sq"] = {g: row_sq(p[g]) for g in GROUPS}
     out["camera_opt"] = S["camera_opt"].double().cpu()
     out["camera_opt0"] = cam0.double().cpu()
+    if grids0 is not None:
+        out["bilateral_grids"] = S["bilateral_grids"].double().cpu()
+        out["bilateral_grids0"] = grids0.double().cpu()
     return out
 
 
@@ -149,11 +156,14 @@ def compare(ref: dict, prog: dict, alive0: torch.Tensor,
     out = {"loss_rel": max(_gap(lp, lr, abs(lr)) for lp, lr in
                            zip(prog["loss"], ref["loss"]))}
     gr = ref["grad_norm"]
+    leaves = LEAVES + (("bilateral_grid",) if "bilateral_grids0" in ref
+                       else ())
     med = statistics.median(gr.values())
-    out["grad_gap"] = max(_gap(prog["grad_norm"][g], gr[g],
-                               max(gr[g], med)) for g in LEAVES)
+    # a leaf the program does not report (its grids missing) fails
+    out["grad_gap"] = max(_gap(prog["grad_norm"].get(g, math.inf), gr[g],
+                               max(gr[g], med)) for g in leaves)
     kept = alive0 & ref["alive"] & prog["alive"] & ~ref["take"]
-    moved = [g for g in LEAVES if gr[g] >= 1e-3 * med]
+    moved = [g for g in leaves if gr[g] >= 1e-3 * med]
     dr, dp = {}, {}
     for g in GROUPS:
         dr[g] = math.sqrt(float(ref["change_sq"][g][kept].sum()))
@@ -162,6 +172,12 @@ def compare(ref: dict, prog: dict, alive0: torch.Tensor,
                               - ref["camera_opt0"]).norm())
     dp["camera_opt"] = float((prog["camera_opt"]
                               - ref["camera_opt0"]).norm())
+    if "bilateral_grid" in leaves:
+        dr["bilateral_grid"] = float((ref["bilateral_grids"]
+                                      - ref["bilateral_grids0"]).norm())
+        dp["bilateral_grid"] = (
+            float((prog["bilateral_grids"] - ref["bilateral_grids0"]).norm())
+            if "bilateral_grids" in prog else math.inf)
     med_d = statistics.median(dr[g] for g in moved)
     out["change_gap"] = max(_gap(dp[g], dr[g], max(dr[g], med_d))
                             for g in moved)

@@ -8,6 +8,9 @@ restore: those the program's own trainer settled on such a state, kept in
 ``splatbench/states/<cell>.json``), on its default
 multi-step dispatch, a CUDA graph of the step replayed per step in chunks
 of ``log_every`` steps, with refine and the eval image between chunks.
+With the model's bilateral grid on, the made state carries the per-camera
+colour grids and their Adam state, and the check compares them as one
+more leaf.
 
 Set-up drives that same trainer from the resume step through its first
 three steps, a chunk of one step and then one of two, ending on a refine;
@@ -15,6 +18,9 @@ the program's readings of them are kept and the reference follows them
 after the window (:mod:`splatbench.check`). Set-up then runs chunks of the
 window's size until the trainer's own rules leave K and the pair budget
 where they are, so that the window's graph is captured before it opens.
+A traced run (``--trace 1``) turns the program's tracing on before set-up,
+so the captured step marks its stages on the device and the trainer names
+its host work; an untraced run leaves it off.
 """
 
 from __future__ import annotations
@@ -126,13 +132,17 @@ def program_state(S: dict) -> TrainState:
                                     device=dev),
                 "mu": s["mu"], "nu": s["nu"]}
 
+    grids = S.get("bilateral_grids")
     return TrainState(
         params=GaussianParams(**S["params"]),
         opt_state={g: adam(S["opt"][g]) for g in GROUPS},
         camera_opt=S["camera_opt"],
         camera_opt_state=adam(S["camera_opt_state"]),
         stats=DensifyStats(**S["stats"]),
-        step=int(S["step"]))
+        step=int(S["step"]),
+        bilateral_grids=grids,
+        bilateral_grid_state=(adam(S["bilateral_grid_state"])
+                              if grids is not None else None))
 
 
 def _rows(run_dir: Path, split: str):
@@ -155,7 +165,8 @@ def first_steps(trainer, S0_params, S0_stats, absgrad: bool) -> dict:
     on the refine. Each step's loss and the K and pair budget it ran at,
     the statistics' change over the three steps as the refine reads it,
     and after the refine the alive mask, each leaf's change per row and
-    the rows' squared norms."""
+    the rows' squared norms; with the grid on, the grids' first gradient
+    and the grids after the three steps."""
     start = trainer.state.step
     out = {"grad_norm": {}}
     trainer.keep_metrics = True
@@ -167,6 +178,9 @@ def first_steps(trainer, S0_params, S0_stats, absgrad: bool) -> dict:
             st.opt_state[g]["mu"].double().norm()) / (1.0 - B1)
     out["grad_norm"]["camera_opt"] = float(
         st.camera_opt_state["mu"].double().norm()) / (1.0 - B1)
+    if st.bilateral_grids is not None:
+        out["grad_norm"]["bilateral_grid"] = float(
+            st.bilateral_grid_state["mu"].double().norm()) / (1.0 - B1)
     trainer.pre_refine_stats = None
     trainer.train(max_steps=start + 3, finalize=False)
     trainer.keep_metrics = False
@@ -192,6 +206,8 @@ def first_steps(trainer, S0_params, S0_stats, absgrad: bool) -> dict:
                         for g in GROUPS}
     out["row_sq"] = {g: check.row_sq(getattr(p, g)) for g in GROUPS}
     out["camera_opt"] = st.camera_opt.detach().double().cpu()
+    if st.bilateral_grids is not None:
+        out["bilateral_grids"] = st.bilateral_grids.detach().double().cpu()
     return out
 
 
@@ -254,9 +270,26 @@ def _tables(trainer) -> tuple:
     return trainer._k_for(1), trainer._tpg_for(1)
 
 
+def _program_tracing(trace: bool):
+    """The program's tracing on for the block where ``trace`` (a program
+    without the tracing module runs untraced); as it was after."""
+    if not trace:
+        return contextlib.nullcontext()
+    try:
+        from qed_splatter_tpu_torch import tracing
+    except ImportError:
+        return contextlib.nullcontext()
+    return tracing.on(True)
+
+
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
              device="cuda", log=None) -> dict:
     """One run; returns the result's fields (and ``run``, ``checks``)."""
+    with _program_tracing(trace):
+        return _run_cell(cell, seed, seconds, trace, device, log)
+
+
+def _run_cell(cell, seed, seconds, trace, device, log) -> dict:
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     dev = torch.device(device)
     traffic, model = cell.traffic, cell.config["model"]
@@ -352,6 +385,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     if traced is not None:
         run.trace = read_trace(traced[0])
         run.trace["traced_steps"] = traced[2] - traced[1]
+        run.trace["traced_chunks"] = len(traced[3])
         positions = scene.camera_sequence(
             seed, int(traffic["resume_step"]), len(scn.train_indices),
             traced[1], traced[2] - traced[1])

@@ -1,6 +1,7 @@
 """Host launches per training step in the traced stretch: the profiler's
 CUDA runtime calls that put work on the device (graph launches, kernel
-launches, asynchronous copies and sets)."""
+launches, asynchronous copies and sets), less the launches of the
+program's own stage-mark kernels (``splatbench.trace``)."""
 
 
 def read(run):

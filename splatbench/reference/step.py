@@ -4,16 +4,23 @@ One camera a step, as splatfacto trains: render with the camera's SO3xR3
 pose delta, ``(1 - l) L1 + l (1 - SSIM)`` plus ``depth_lambda`` times the
 masked depth L1 plus the pose regularizer, autograd, non-finite gradient
 elements zeroed, one Adam per group (nerfstudio's exponential-decay
-schedules), the camera Adam, then the absgrad statistics. The refine is
-splatfacto's densify-and-cull at fixed capacity. Each piece is a frozen
-copy of the port's plain arithmetic (``models/splatfacto.py``,
-``ops/ssim.py``, ``engine/optim.py``, ``engine/densify.py``), so a correct
-program agrees with it to rounding; it imports nothing of the program.
+schedules), the camera Adam, then the absgrad statistics. With the model's
+``use_bilateral_grid``, the camera's colour grid maps the render before
+the loss, ten times the grids' total variation joins the loss, and the
+grids take their own Adam group. The refine is splatfacto's
+densify-and-cull at fixed capacity. Each piece is a frozen copy of the
+port's plain arithmetic (``models/splatfacto.py``, ``ops/ssim.py``,
+``engine/optim.py``, ``engine/densify.py``), except the grid's read, which
+:mod:`splatbench.reference.appearance` writes in a form of its own; so a
+correct program agrees with it to rounding. It imports nothing of the
+program.
 
 The state is plain dicts of tensors: ``params`` (means, quats, scales,
 opacities, features_dc, features_rest, alive), ``opt`` (group -> count,
 mu, nu), ``camera_opt`` and ``camera_opt_state``, ``stats``
-(grad_norm_sum, vis_count, max_radii_frac) and ``step``.
+(grad_norm_sum, vis_count, max_radii_frac) and ``step``; with the grid on,
+``bilateral_grids`` ([num_cameras, gh, gw, gd, 12]) and
+``bilateral_grid_state``.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import math
 import numpy as np
 import torch
 
-from splatbench.reference import raster
+from splatbench.reference import appearance, raster
 from splatbench.reference.geometry import (
     apply_camera_opt,
     camera_opt_regularizer,
@@ -167,23 +174,34 @@ def adam_(param, grad, st, cfg):
 def train_step(S, frame, background, model, optimizers, k, tpg,
                need_absgrad, bands):
     """One step on ``frame`` (rgb, depth, c2w, K, cam_idx, width,
-    height): updates ``S`` in place; returns (loss, gradients by leaf)."""
+    height): updates ``S`` in place; returns (loss, gradients by leaf,
+    the grids' as ``bilateral_grid`` when the model has them)."""
     p = S["params"]
     leaves = {g: p[g].detach().requires_grad_(True) for g in GROUPS}
     cam = S["camera_opt"].detach().requires_grad_(True)
+    grids = (S["bilateral_grids"].detach().requires_grad_(True)
+             if model["use_bilateral_grid"] else None)
     delta = cam[frame["cam_idx"]]
     c2w = apply_camera_opt(frame["c2w"], delta)
     q = dict(leaves, alive=p["alive"])
     rgb, depth, alpha, radii, binning, eps = render_train(
         q, c2w, frame["K"], frame["width"], frame["height"], model,
         S["step"], background, k, tpg, need_absgrad)
+    if grids is not None:
+        rgb = appearance.apply_grid(grids[frame["cam_idx"]], rgb)
     loss = total_loss(rgb, depth, frame["rgb"], frame["depth"], model,
                       bands) + camera_opt_regularizer(delta)
-    inputs = [*leaves.values(), cam] + ([eps] if eps is not None else [])
+    if grids is not None:
+        loss = loss + appearance.tv_loss(grids)
+    names, inputs = [*GROUPS, "camera_opt"], [*leaves.values(), cam]
+    if grids is not None:
+        names.append("bilateral_grid")
+        inputs.append(grids)
+    if eps is not None:
+        inputs.append(eps)
     grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-    g = {name: (torch.zeros_like(leaves[name]) if gr is None else gr)
-         for name, gr in zip(GROUPS, grads)}
-    g["camera_opt"] = torch.zeros_like(cam) if grads[6] is None else grads[6]
+    g = {name: (torch.zeros_like(x) if gr is None else gr)
+         for name, x, gr in zip(names, inputs, grads)}
     with torch.no_grad():
         for x in g.values():
             torch.nan_to_num_(x, nan=0.0, posinf=0.0, neginf=0.0)
@@ -191,8 +209,11 @@ def train_step(S, frame, background, model, optimizers, k, tpg,
             adam_(p[name], g[name], S["opt"][name], optimizers[name])
         adam_(S["camera_opt"], g["camera_opt"], S["camera_opt_state"],
               optimizers["camera_opt"])
+        if grids is not None:
+            adam_(S["bilateral_grids"], g["bilateral_grid"],
+                  S["bilateral_grid_state"], optimizers["bilateral_grid"])
         if eps is not None:
-            ag = grads[7] if grads[7] is not None else torch.zeros_like(eps)
+            ag = grads[-1] if grads[-1] is not None else torch.zeros_like(eps)
             absgrad = raster.absgrad_sums(ag, binning, p["means"].shape[0])
             vis = radii > 0
             st = S["stats"]

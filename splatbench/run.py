@@ -87,6 +87,10 @@ def result_line(cell, out: dict, trace: bool, kind: str, count: int) -> dict:
         res["device"]["window_s"] = run.trace["window_s"]
         res["breakdown"] = {"device_ops": run.trace["device_ops"],
                             "idle_gaps": run.trace["idle_gaps"]}
+        if run.trace["stages"] and run.trace["busy_s"] > 0:
+            cover = sum(run.trace["stages"].values()) / run.trace["busy_s"]
+            print(f"the program's stages cover {100 * cover:.2f}% of the "
+                  "traced busy time", file=sys.stderr)
         by_time = sorted(run.trace["kernels"].items(), key=lambda x: -x[1])
         matched = [(yardstick.kernel_entry(n), n, s) for n, s in by_time]
         print("kernels with a roofline (s in the trace): "

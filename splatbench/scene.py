@@ -13,7 +13,10 @@ pixels, and opacities, sizes against the points' spacing, SH bands, Adam's
 second moments and, for a densifying window, the statistics a refine
 period has gathered, all drawn from a state the program trained on the
 card (``splatbench/states/<cell>.json``, made by
-:mod:`splatbench.calibrate`). Every draw
+:mod:`splatbench.calibrate`). With the model's bilateral grid on, each
+train camera's colour grid is drawn too (:func:`bilateral_grids`), after
+every other draw, so that a state without grids is the same with or
+without that code. Every draw
 is a ``torch.Generator`` on the device seeded from ``--seed``, so the same
 seed gives the same state, bit for bit, and the reference can make it
 again. It reads the dataset through :mod:`splatbench.reference.data`, not
@@ -180,9 +183,102 @@ def synthesize(scene: rdata.Scene, config: dict, traffic: dict, state: dict,
         stats["vis_count"][:n] = vis
         stats["grad_norm_sum"][:n] = vis * mean_grad / (
             0.5 * max(train.width, train.height))
-    return {"params": params, "opt": opt, "camera_opt": camera_opt,
-            "camera_opt_state": camera_opt_state, "stats": stats,
-            "step": step}
+    out = {"params": params, "opt": opt, "camera_opt": camera_opt,
+           "camera_opt_state": camera_opt_state, "stats": stats,
+           "step": step}
+    if config["model"]["use_bilateral_grid"]:
+        if "bilateral_grid" not in state:
+            raise KeyError("the model turns the bilateral grid on, and the "
+                           "cell's states file has no 'bilateral_grid' rule "
+                           "(splatbench/calibrate.py writes it)")
+        out["bilateral_grids"], out["bilateral_grid_state"] = (
+            bilateral_grids(scene, config["model"]["bilateral_grid_shape"],
+                            state["bilateral_grid"], step, gen, device))
+    return out
+
+
+IDENTITY = (1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0)
+
+
+def _smooth_corr(r: float, n: int) -> torch.Tensor:
+    """[n, n] float64 correlation of a smooth stationary field along an
+    axis of ``n`` cells whose neighbours correlate by ``r``: ``r`` to the
+    squared distance (a Gaussian in the distance)."""
+    k = torch.arange(n, dtype=torch.float64)
+    return r ** ((k[:, None] - k[None, :]) ** 2)
+
+
+def _neighbour_corr(sample_corr, sizes) -> list:
+    """Each axis's neighbour correlation ``r`` of a separable smooth field
+    (:func:`_smooth_corr`) whose expected sample correlation over a grid of
+    ``sizes`` is ``sample_corr``: one minus the mean squared neighbour
+    difference, 2 (1 - r), over twice the variance about the grid's mean,
+    1 minus the mean of the field's correlations over the grid. A fixed
+    point, in plain floats (no draw)."""
+    r = [float(c) for c in sample_corr]
+    for _ in range(200):
+        mean_corr = 1.0
+        for ri, n in zip(r, sizes):
+            mean_corr *= float(_smooth_corr(ri, n).sum()) / n ** 2
+        var = 1.0 - mean_corr
+        r = [min(max(1.0 - (1.0 - c) * var, 0.0), 0.999999)
+             for c in sample_corr]
+    return r
+
+
+def _correlate(x: torch.Tensor, dim: int, r: float) -> torch.Tensor:
+    """``x`` (independent unit normals along ``dim``) given the correlation
+    :func:`_smooth_corr` along ``dim``: each line times a square root of
+    the matrix, as products and sums (no matrix product, so no TF32)."""
+    n = x.shape[dim]
+    lam, vec = torch.linalg.eigh(_smooth_corr(r, n))
+    root = (vec * lam.clamp(min=0.0).sqrt()).to(x.device, x.dtype)
+    root = root.reshape((1,) * dim + (n, n) + (1,) * (x.dim() - dim - 1))
+    return (root * x.unsqueeze(dim)).sum(dim + 1)
+
+
+def bilateral_grids(scene: rdata.Scene, shape, rule: dict, step: int,
+                    gen: torch.Generator, device) -> tuple:
+    """The colour grids ([num_cameras, gh, gw, gd, 12], one per frame, as
+    the program's trainer makes them) and their Adam state, by the rule
+    ``rule`` (the ``bilateral_grid`` key of the states file, written by
+    :func:`splatbench.calibrate.grid_statistics` from trained grids).
+
+    The frames the trainer never trains on keep the identity grid and a
+    zero second moment, as in a trained state. Each train camera's grid is
+    the identity plus, for each of the 12 coefficients, a per-camera
+    offset (normal at ``offset_mean``, ``offset_std``) and a residual about
+    it: a smooth field (a Gaussian correlation along each grid axis, with
+    the camera's mean taken out) at ``residual_rms`` over the cameras,
+    whose sample neighbour correlation along each axis is
+    ``residual_corr``, so that its total variation is the trained grids'.
+    Second moments are lognormal at ``adam``'s median root and log sigma;
+    first moments zero; the count the resume step."""
+    gh, gw, gd = (int(v) for v in shape)
+    f32 = torch.float32
+    n_cam = len(scene.frames)
+    train = torch.as_tensor(np.asarray(scene.train_indices, np.int64),
+                            device=device)
+    n = train.numel()
+    ident = torch.tensor(IDENTITY, dtype=f32, device=device)
+    offset = (torch.tensor(rule["offset_mean"], dtype=f32, device=device)
+              + torch.tensor(rule["offset_std"], dtype=f32, device=device)
+              * _normal(gen, (n, 12), device))
+    field = _normal(gen, (n, gh, gw, gd, 12), device)
+    for dim, r in enumerate(_neighbour_corr(rule["residual_corr"],
+                                            (gh, gw, gd)), start=1):
+        field = _correlate(field, dim, r)
+    field = field - field.mean((1, 2, 3), keepdim=True)
+    field = field * (torch.tensor(rule["residual_rms"], dtype=f32,
+                                  device=device)
+                     / field.pow(2).mean((0, 1, 2, 3)).sqrt())
+    grids = ident.expand(n_cam, gh, gw, gd, 12).clone()
+    grids[train] = ident + offset[:, None, None, None, :] + field
+    adam = rule["adam"]
+    nu = torch.zeros_like(grids)
+    nu[train] = (adam["rms"] * torch.exp(_normal(
+        gen, (n, gh, gw, gd, 12), device, std=adam["log_sigma"]))) ** 2
+    return grids, {"count": step, "mu": torch.zeros_like(grids), "nu": nu}
 
 
 def camera_sequence(seed: int, resume_step: int, num_train: int, start: int,

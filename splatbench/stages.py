@@ -5,7 +5,7 @@ With ``qed_splatter_tpu_torch.tracing`` enabled before the step's graph is
 captured, every replayed step launches an empty kernel, ``stage_mark<i>``,
 where stage ``tracing.STAGES[i]`` begins, and the trainer wraps its chunks
 and the host work between them in ``qed.`` ranges (``user_annotation``
-events). :func:`read_stages` reads both:
+events). :func:`stages_of` reads both:
 
 - ``stages``: device busy seconds by stage. The busy time between one mark
   and the next on the marks' stream goes to the stage the earlier mark
@@ -17,11 +17,15 @@ events). :func:`read_stages` reads both:
   all device intervals, as :func:`splatbench.trace.read_trace` takes them)
   that fall inside ``qed.chunk.host`` ranges.
 
-:data:`LAYER_MS` turns them into the per-layer numbers the stage marks
-measure, in ms a traced step (or a traced chunk); :func:`busy_in_steps_s`
-is the busy time the stages should cover, :func:`launches_by_span` the
-host's launches by the innermost ``qed.`` range around them. No cell reads
-them yet; run as a script, one traced run of a cell with tracing on:
+:func:`splatbench.trace.read_trace` merges both into the run's trace, so a
+per-layer metric reads a stage by its name in the program's table,
+``run.trace["stages"][name]``: a stage the program adds is read by a new
+metric file alone. :data:`LAYER_MS` turns them into the per-layer numbers
+the stage marks measure, in ms a traced step (or a traced chunk), and
+:func:`layer_ms` reads one of them from a run;
+:func:`busy_in_steps_s` is the busy time the stages should cover,
+:func:`launches_by_span` the host's launches by the innermost ``qed.``
+range around them. Run as a script, one traced run of a cell:
 
     python3 -m splatbench.stages --workload <name> --seed <n> \
         [--seconds 51]
@@ -35,15 +39,13 @@ from __future__ import annotations
 
 import bisect
 import json
-import re
 import sys
 from collections import defaultdict
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from splatbench.trace import DEVICE_CATS, HOST_CATS, LAUNCHES
+from splatbench.trace import DEVICE_CATS, HOST_CATS, LAUNCHES, MARK
 
-MARK = re.compile(r"\bstage_mark<(\d+)>")
 HOST_SPAN_CATS = {"user_annotation"}
 # the categories whose extent is the trace's window in read_trace
 WINDOW_CATS = DEVICE_CATS | HOST_CATS | {"cpu_op", "user_annotation",
@@ -102,11 +104,9 @@ def _stage_seconds(events, table) -> Dict[str, float]:
     return dict(out)
 
 
-def read_stages(path: Path, table: Optional[Sequence[str]] = None) -> dict:
+def stages_of(events: list, table: Optional[Sequence[str]] = None) -> dict:
     """``{"stages": {...}, "host_spans": {..., "chunk_host_idle_s"}}`` of
-    the Chrome trace at ``path``; ``table`` defaults to the program's."""
-    events = json.loads(Path(path).read_text())
-    events = events.get("traceEvents", events)
+    a Chrome trace's events; ``table`` defaults to the program's."""
     table = program_stages() if table is None else table
     spans: Dict[str, float] = defaultdict(float)
     host = []
@@ -159,7 +159,7 @@ def _chunk_host_idle_ms(st: dict, steps: int, chunks: int):
     return 1e3 * st["host_spans"]["chunk_host_idle_s"] / chunks
 
 
-# per-layer numbers from read_stages(): ms a traced step, forward and
+# per-layer numbers from stages_of(): ms a traced step, forward and
 # backward where the stage has both (the last: ms a traced chunk)
 LAYER_MS = {
     "binning_ms": _stage_ms("render.bin"),
@@ -168,6 +168,15 @@ LAYER_MS = {
     "optimizer_ms": _stage_ms("step.optimizer"),
     "chunk_host_idle_ms": _chunk_host_idle_ms,
 }
+
+
+def layer_ms(name: str, run) -> Optional[float]:
+    """``LAYER_MS[name]`` of a run's trace (None without one)."""
+    t = getattr(run, "trace", None)
+    if not t or "stages" not in t or not t.get("traced_steps"):
+        return None
+    return LAYER_MS[name](t, int(t["traced_steps"]),
+                          int(t.get("traced_chunks", 0)))
 
 
 def _events(path: Path) -> list:
@@ -225,7 +234,7 @@ def split(path: Path, trace: dict, chunks: int,
     table = program_stages() if table is None else table
     steps = int(trace["traced_steps"])
     events = _events(path)
-    st = read_stages(path, table)
+    st = stages_of(events, table)
     busy = trace["busy_s"]
     idle = trace["window_s"] - busy
     inside = busy_in_steps_s(events, table or ())
@@ -258,10 +267,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, default=51)
     args = ap.parse_args(argv)
     brun._environment()
-    from qed_splatter_tpu_torch import tracing
     from splatbench import harness, spec
 
-    tracing.enable()
     cell = spec.load_cell(args.workload)
     out = harness.run_cell(cell, args.seed, args.seconds, True)
     try:

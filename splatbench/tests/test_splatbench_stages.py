@@ -66,7 +66,7 @@ def test_read_trace_keys_unchanged_on_a_trace_with_marks_and_spans(
 
 
 def test_stages_split_the_busy_time_between_marks(tmp_path):
-    got = stages.read_stages(_trace(tmp_path), TABLE)
+    got = read_trace(_trace(tmp_path), TABLE)
     # a: the mark and a kernel in each step; b: its mark and the
     # compositing; after step.end and on stream 9: no stage
     assert got["stages"] == pytest.approx({"a": 21e-6, "b": 21e-6})
@@ -81,11 +81,11 @@ def test_stages_split_the_busy_time_between_marks(tmp_path):
 
 def test_stages_empty_without_a_table_or_marks(tmp_path):
     path = _trace(tmp_path)
-    assert stages.read_stages(path, ())["stages"] == {}
+    assert read_trace(path, ())["stages"] == {}
     ev = [e for e in json.loads(path.read_text())["traceEvents"]
           if "stage_mark" not in e["name"]]
     path.write_text(json.dumps({"traceEvents": ev}))
-    got = stages.read_stages(path, TABLE)
+    got = read_trace(path, TABLE)
     assert got["stages"] == {}
     assert all(f(got, 2, 1) is None for k, f in stages.LAYER_MS.items()
                if k != "chunk_host_idle_ms")
@@ -128,3 +128,84 @@ def test_launches_go_to_the_innermost_program_range():
           _x("cuda_runtime", "cudaLaunchKernel", 500, 3, tid=1)]
     assert stages.launches_by_span(ev, 2) == pytest.approx(
         {"qed.refine": 1.0, "qed.chunk": 0.5, "_no_span_": 0.5})
+
+
+def test_the_run_trace_reads_a_stage_the_table_adds_by_its_name(tmp_path):
+    from splatbench import harness, spec
+
+    # the program's table with a stage it does not have today
+    table = ("a", "render.bilagrid", "step.end")
+    trace = read_trace(_trace(tmp_path), table)
+    assert trace["stages"] == pytest.approx({"a": 21e-6,
+                                             "render.bilagrid": 21e-6})
+    assert trace["chunk_host_idle_s"] == pytest.approx(123e-6)
+    assert trace["host_spans"]["qed.refine"] == pytest.approx(50e-6)
+    run = harness.Run()
+    run.trace = dict(trace, traced_steps=2, traced_chunks=1)
+    # what a metric file added for the new stage would read
+    assert 1e3 * run.trace["stages"]["render.bilagrid"] / 2 == \
+        pytest.approx(0.0105)
+    assert spec.reader("chunk_host_idle_ms.train")(run) == \
+        pytest.approx(0.123)
+    assert spec.reader("binning_ms.train")(run) is None
+
+
+def test_the_stage_metrics_read_the_program_s_stage_names(tmp_path):
+    from qed_splatter_tpu_torch import tracing
+
+    from splatbench import harness, spec
+
+    idx = {n: i for i, n in enumerate(tracing.STAGES)}
+    ev, t = [], 0.0
+    for step in range(2):
+        for name, dur in (("step.inputs", 1), ("render.project", 2),
+                          ("render.sh", 3), ("render.bin", 4),
+                          ("bwd.render.sh", 5), ("bwd.render.project", 6),
+                          ("loss.ssim", 7), ("bwd.loss.ssim", 8),
+                          ("step.optimizer", 9), ("step.end", 0)):
+            ev.append(_x("kernel", f"void stage_mark<{idx[name]}>()", t, 0))
+            ev.append(_x("kernel", "work", t, dur))
+            t += dur + 1
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    run = harness.Run()
+    run.trace = dict(read_trace(path), traced_steps=2, traced_chunks=1)
+    got = {m: spec.reader(m)(run) for m in (
+        "binning_ms.train", "render_rows_ms.train", "ssim_ms.train",
+        "optimizer_ms.train")}
+    assert got == pytest.approx({
+        "binning_ms.train": 0.004, "render_rows_ms.train": 0.016,
+        "ssim_ms.train": 0.015, "optimizer_ms.train": 0.009})
+    # no qed.chunk.host range in this trace: nothing to read
+    assert spec.reader("chunk_host_idle_ms.train")(run) is None
+
+
+def test_an_idle_gap_is_named_by_a_range_that_began_many_ranges_before():
+    from splatbench.trace import _innermost
+
+    spans = [(0.0, 1000.0, "qed.chunk.host")] + [
+        (1.0 + i, 1.5 + i, f"op{i}") for i in range(200)]
+    assert _innermost(spans, [300.0, 150.2, 2000.0]) == [
+        "qed.chunk.host", "op149", None]
+
+
+def test_launches_of_stage_marks_outside_the_graph_are_not_counted(
+        tmp_path):
+    def launch(name, ts, corr):
+        return dict(_x("cuda_runtime", name, ts, 2, tid=1),
+                    args={"correlation": corr})
+
+    def kernel(name, ts, corr):
+        return dict(_x("kernel", name, ts, 1), args={"correlation": corr})
+
+    ev = [launch("cudaGraphLaunch", 0, 1),
+          kernel("void stage_mark<0>()", 5, 1),
+          kernel("void composite_kernel<4, true>()", 6, 1),
+          launch("cudaLaunchKernel", 20, 2),
+          kernel("void stage_mark<3>()", 25, 2),
+          launch("cudaLaunchKernel", 30, 3),
+          kernel("elementwise_kernel", 35, 3)]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    # the graph's launch and the elementwise kernel's, not the mark's
+    assert read_trace(path, ())["launches"] == 2
