@@ -62,10 +62,11 @@ from qed_splatter_tpu_torch.models.gaussians import FIELDS
 from qed_splatter_tpu_torch.models.splatfacto import background_color
 
 # the per-step metrics a chunk keeps (the JAX scan's stacked ``light``
-# dict, and the grids' ``tv_loss`` where the step has it), then the camera
-# index each step read
+# dict, and the grids' ``tv_loss`` and ``bilagrid_clamped`` where the step
+# has them), then the camera index each step read
 LIGHT = ("loss", "psnr", "main_loss", "depth_loss", "tile_overflow",
-         "bbox_truncated", "tile_max_count", "nonfinite_grads", "tv_loss")
+         "bbox_truncated", "tile_max_count", "nonfinite_grads", "tv_loss",
+         "bilagrid_clamped")
 
 # uint8 -> float32 / 255 as one IEEE division per value (numpy's, and the
 # per-step loop's), looked up in the body

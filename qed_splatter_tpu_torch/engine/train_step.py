@@ -5,7 +5,8 @@ One call does, for one camera, in the JAX step's order:
 
 - the training render with the camera-opt delta applied; with
   ``use_bilateral_grid``, the camera's colour grid applied to it and the
-  result clipped to [0, 1];
+  result clipped to [0, 1] (the metric ``bilagrid_clamped``: the share of
+  channel values the clip cuts);
 - :func:`~qed_splatter_tpu_torch.models.splatfacto.total_loss` plus the
   camera-opt regularizer and ``10 * total_variation_loss`` of the grids;
 - gradients to the six gaussian groups, the camera deltas, the grids and
@@ -157,6 +158,7 @@ class StepGrads:
     camera_opt: torch.Tensor       # [num_cameras, 6]
     absgrad: Optional[torch.Tensor]  # [C, 2] per-gaussian |grad| sums
     bilateral_grids: Optional[torch.Tensor] = None  # [num_cameras, ...]
+    bilagrid_clamped: Optional[torch.Tensor] = None  # 0-d, with the grid
 
 
 @dataclasses.dataclass
@@ -261,11 +263,18 @@ class TrainStep:
             tile_eps=None if cfg.use_pallas else side,
             absgrad_seed=side if cfg.use_pallas else None,
         )
+        clamped = None
         if grids is not None:
             # the camera's colour correction, on the training render only
+            tracing.stage("render.bilagrid")
             grid = grids.index_select(0, inp.cam_idx.reshape(1))[0]
-            out = dataclasses.replace(out, rgb=torch.clamp(
-                apply_bilateral_grid(grid, out.rgb), 0.0, 1.0))
+            rgb = apply_bilateral_grid(grid, out.rgb)
+            # the share of channel values the clamp cuts (their gradient is
+            # zero): how much of the image the grid has saturated
+            clamped = ((rgb < 0.0) | (rgb > 1.0)).to(torch.float32).mean()
+            rgb, = tracing.stage_outputs("render.bilagrid",
+                                         torch.clamp(rgb, 0.0, 1.0))
+            out = dataclasses.replace(out, rgb=rgb)
         loss, losses = total_loss(out, inp.rgb, inp.depth, p, cfg, inp.step,
                                   inp.mask, self.ssim_bands)
         if self.camera_opt_on:
@@ -293,7 +302,7 @@ class TrainStep:
                 g_side, out.tile_lists, state.params.capacity))
         return StepGrads(loss.detach(), {k: v.detach() for k, v in
                                          losses.items()},
-                         out, g_params, g_cam, absgrad, g_grids)
+                         out, g_params, g_cam, absgrad, g_grids, clamped)
 
     @tracing.step_body
     def run(self, state: TrainState, inp: StepInputs) -> Dict:
@@ -349,6 +358,8 @@ class TrainStep:
             metrics["tile_overflow"] = out.tile_overflow
             metrics["bbox_truncated"] = out.bbox_truncated
             metrics["tile_max_count"] = out.tile_max_count
+            if sg.bilagrid_clamped is not None:
+                metrics["bilagrid_clamped"] = sg.bilagrid_clamped
             inp.step.add_(1)
         return metrics
 

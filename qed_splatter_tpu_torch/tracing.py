@@ -42,7 +42,12 @@ import torch
 # the stages of one training step in the order their marks fire: the
 # forward, the backward (the autograd engine reaches each stage's outputs
 # in the reverse order), then the step's tail. A mark opens its stage; the
-# next mark closes it.
+# next mark closes it. The bilateral grid's two stages come last, so that a
+# step without the grid marks the indices it marked before they were added;
+# with the grid on, ``render.bilagrid`` fires after ``render.composite``
+# and ``bwd.render.bilagrid`` between ``bwd.loss.ssim`` and
+# ``bwd.render.composite``. The grid's total variation stays in
+# ``loss.other`` and its Adam in ``step.optimizer``.
 STAGES = (
     "step.inputs",          # the scan body's frame select, u8 -> float
     "render.project",       # camera opt, viewmat, projection, radii mask
@@ -60,6 +65,8 @@ STAGES = (
     "step.optimizer",       # gradient hygiene, clip, every group's Adam
     "step.metrics",         # the metrics, their stack and index_copy_
     "step.end",
+    "render.bilagrid",      # the camera's grid sliced and applied, clamped
+    "bwd.render.bilagrid",
 )
 INDEX = {name: i for i, name in enumerate(STAGES)}
 MAX_STAGES = 32             # csrc/stage_mark.cu's kMaxStages

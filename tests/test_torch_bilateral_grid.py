@@ -194,7 +194,8 @@ def test_train_step_with_grid_matches_jax(jax_grid_step):
     inp = step.inputs(batch, torch.Generator().manual_seed(0), new.step)
     inp.background = torch.as_tensor(want["background"].copy())
     metrics = step.run(new, inp)
-    assert set(metrics) == set(jm)
+    # the port counts the values the clamp cuts; JAX has no such metric
+    assert set(metrics) == set(jm) | {"bilagrid_clamped"}
     for k in ("loss", "main_loss", "depth_loss", "tv_loss", "psnr",
               "camera_opt_regularizer"):
         np.testing.assert_allclose(float(metrics[k]), jm[k], rtol=1e-5,

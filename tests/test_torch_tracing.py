@@ -38,13 +38,28 @@ def dataset(tmp_path_factory):
     return root
 
 
-def _trainer(dataset, out, device="cpu", **kw):
+# the grid's stages, which fire only with the grid on
+GRID = ("render.bilagrid", "bwd.render.bilagrid")
+
+
+def _trainer(dataset, out, device="cpu", grid=False, **kw):
     cfg = TrainerConfig(
         data=DataConfig(data=str(dataset)), output_dir=str(out),
         max_num_iterations=14, steps_per_dispatch=2, steps_per_eval_image=0,
         steps_per_eval_all_images=0, steps_per_save=0,
-        model=ModelConfig(**MODEL_KW), **kw)
+        model=ModelConfig(**MODEL_KW, use_bilateral_grid=grid), **kw)
     return Trainer(cfg, device=device)
+
+
+def _fired(grid):
+    """The stages in the order a step fires their marks: the table without
+    the grid's, and with the grid on its forward after the compositing and
+    its backward between the SSIM's and the compositing's."""
+    order = [s for s in tracing.STAGES if s not in GRID]
+    if grid:
+        order.insert(order.index("render.composite") + 1, GRID[0])
+        order.insert(order.index("bwd.render.composite"), GRID[1])
+    return order
 
 
 @pytest.fixture(scope="module")
@@ -106,12 +121,24 @@ def test_stage_marks_fire_in_the_order_of_the_table(trainer):
     _, names = _profiled_chunk(trainer, True)
     marks = [n[len("qed.stage."):] for n in names
              if n.startswith("qed.stage.")]
-    assert marks == list(tracing.STAGES)
+    # without the grid: the table's first 16, the grid's two never
+    assert marks == list(tracing.STAGES[:16]) == _fired(False)
     # the forward, then the backward in reverse, then the step's tail
     fwd = list(tracing.STAGES[1:7])
-    bwd = [s[len("bwd."):] for s in tracing.STAGES if s.startswith("bwd.")]
+    bwd = [s[len("bwd."):] for s in marks if s.startswith("bwd.")]
     assert bwd == [s for s in reversed(fwd) if s != "render.bin"]
     assert names[:2] == ["qed.chunk.bind", "qed.chunk.replay"]
+
+
+def test_grid_stage_marks_fire_around_the_slice(dataset, tmp_path):
+    """With the grid on, its forward mark fires after the compositing's
+    and before the SSIM's; its backward mark after the SSIM's backward
+    and before the compositing's."""
+    t = _trainer(dataset, tmp_path / "out", grid=True)
+    _, names = _profiled_chunk(t, True)
+    marks = [n[len("qed.stage."):] for n in names
+             if n.startswith("qed.stage.")]
+    assert marks == _fired(True)
 
 
 def test_eval_renders_mark_nothing(trainer):
@@ -158,17 +185,16 @@ def test_profile_dir_traces_a_chunk_of_the_graph_path(dataset, tmp_path):
     assert train and all(r["graph_captures"] == 0 for r in train)
 
 
-@pytest.mark.cuda
-def test_graph_replays_run_every_mark_once_a_step(dataset, tmp_path):
-    """Each replay of a step captured with tracing on runs the stage marks
-    as device kernels, in the order of the table, once a step."""
+def _replayed_marks(dataset, tmp_path, grid):
+    """The stage indices the device ran, in time order, over three
+    replays of a step captured with tracing on."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the marks are CUDA kernels)")
     from torch.profiler import ProfilerActivity, profile
 
     mark = re.compile(r"\bstage_mark<(\d+)>")
     tracing.enable(True)
-    t = _trainer(dataset, tmp_path / "out", device="cuda")
+    t = _trainer(dataset, tmp_path / "out", device="cuda", grid=grid)
     runner, _ = t._get_scan_fn(1, 3, True, t.state.params.capacity)
     state, _ = runner(t.state, t._next_perm(3), t._backgrounds(0, 3))
     assert (runner.captures, runner.replays) == (1, 2)
@@ -182,4 +208,23 @@ def test_graph_replays_run_every_mark_once_a_step(dataset, tmp_path):
                    for e in json.loads(path.read_text())["traceEvents"]
                    if e.get("cat") == "kernel"
                    and mark.search(e.get("name", "")))
-    assert [i for _, i in marks] == list(range(len(tracing.STAGES))) * 3
+    return [i for _, i in marks]
+
+
+@pytest.mark.cuda
+def test_graph_replays_run_every_mark_once_a_step(dataset, tmp_path):
+    """Each replay of a step captured with tracing on runs the stage marks
+    as device kernels, in the order of the table, once a step: without the
+    grid, the table's first 16 (the grid's two come last)."""
+    got = _replayed_marks(dataset, tmp_path, grid=False)
+    assert got == list(range(16)) * 3
+    assert got == [tracing.INDEX[s] for s in _fired(False)] * 3
+
+
+@pytest.mark.cuda
+def test_graph_replays_run_the_grid_marks_once_a_step(dataset, tmp_path):
+    """With the grid on, each replay runs its two marks besides, where
+    they fire: after the compositing's and before the compositing's
+    backward."""
+    got = _replayed_marks(dataset, tmp_path, grid=True)
+    assert got == [tracing.INDEX[s] for s in _fired(True)] * 3
